@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-The paper's application (Sec. 4.2): Smith-Waterman protein database search,
-subjects streamed through an order-preserving farm whose workers score one
-(query, subject) pair each with the hand-written CUDA kernel.
+Two paths, each through the entry points a user calls, each with the
+kernel launch counts set to 0 just before it and read just after:
+
+* the paper's application (Sec. 4.2): Smith-Waterman protein database
+  search, subjects streamed through an order-preserving farm whose workers
+  score one (query, subject) pair each with the hand-written CUDA kernel;
+* Zamba2-2.7B at full width (54 layers, bf16, random weights from a seed):
+  ``prefill`` of 2 x 4096 tokens, which runs the flash-attention kernel in
+  its 9 shared-attention blocks and the SSD kernel in its 45 Mamba2
+  blocks, then the ``ServeEngine`` serving 8 requests through
+  ``decode_step`` (plain PyTorch, as in the reference).
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-  3. kernel == plain PyTorch version on the card, exactly, on many shapes;
-  4. the main path: a 4096-subject database through ``TaskFarm`` and
-     through ``Pipeline(Farm, Stage)``, with launch counts, order and
-     scores checked;
-  5. kernel, plain-version and bound times at the main path's shapes;
-  6. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  2. build the three kernels from ``src/repro_torch/kernels/csrc``, one
+     nvcc each, all started together;
+  3. SW kernel == plain PyTorch version on the card, exactly, on many shapes;
+  4. the SW main path: a 4096-subject database through ``TaskFarm`` and
+     through ``Pipeline(Farm, Stage)``, launch counts, order, scores;
+  5. SW kernel, plain-version and bound times at the main path's shapes;
+  6. FA and SSD kernels against their plain versions on many shapes;
+  7. the Zamba2 main path: prefill (9 FA + 45 SSD launches each), the
+     f32 prefill-against-decode consistency check, serving;
+  8. FA and SSD kernel, plain, bound and library times at the main path's
+     shapes;
+  9. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
+import contextlib
 import json
 import os
 import signal
@@ -42,6 +56,31 @@ PEAK_F32 = 67e12              # H100 SXM f32 outside the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s
 SOURCE = "src/repro_torch/kernels/csrc/smith_waterman.cu"
 REPLACES = "src/repro/kernels/smith_waterman.py:52"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:30"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:36"
+PEAK_BF16 = 989e12            # H100 SXM dense bf16 tensor-core rate, FLOP/s
+MAIN_ARCH = "zamba2-2.7b"     # exactly as in src/repro_torch/configs
+PREFILL_B, PREFILL_S = 2, 4096  # Zamba2's context; a multiple of chunk 256
+CONSIST_S = 512               # the f32 prefill-against-decode prompt
+# f32 prefill (kernels) against f32 decode (no kernel): max |logit diff|,
+# logits up to ~4.3.  At full width the f32 sides end ~4e-3 apart, the
+# plain versions' prefill as far as the kernels' (printed below): the
+# chunked SSD takes exp(cs_i - cs_j) of two cumulative log-decays that
+# reach -1e3 and beyond, where f32 keeps ~1e-4 of the difference, and 54
+# random layers carry it on.  A bf16 model moves the logits by ~2.5, so it
+# fails the tolerance by 50x (checked below).
+CONSIST_TOL = 5e-2
+SERVE_REQS, SERVE_BATCH, SERVE_LEN, SERVE_NEW = 8, 4, 256, 16
+# kernel against plain on the card: FA 2e-5 f32 / 2e-2 bf16 (the
+# reference's, tests/test_kernels.py:93; softmax sums in another order);
+# SSD 1e-4 with f32 products (tests/test_kernels.py:146; chunk sums of up
+# to 256 terms in another order), 5e-2 with bf16 products (the reference's
+# bf16 tolerance: a sum in another order can round an operand to its
+# bf16 neighbour).  |kernel - plain| <= tol + tol * |plain| elementwise.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
 class CheckFailed(Exception):
@@ -155,7 +194,7 @@ def phase_main_path(dev, sw, ops, core):
     queries = {q: torch.as_tensor(rng.integers(0, 20, q).astype(np.int32),
                                   device=dev) for q in QUERY_LENS}
     runs = {}
-    sw.reset_launch_count()                       # --- counted window ---
+    reset_counts()                                # --- counted window ---
     for qlen, query in queries.items():
         for go, tag in REGIMES:
             times = []
@@ -306,6 +345,454 @@ def phase_timing(dev, sw, ops):
     return rows
 
 
+def _counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import smith_waterman as sw
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"sw": sw, "fa": fa, "ssd": ssd}
+
+
+def reset_counts():
+    for mod in _counters().values():
+        mod.reset_launch_count()
+
+
+def read_counts():
+    return {name: mod.launch_count() for name, mod in _counters().items()}
+
+
+def within(got, want, tol):
+    """(max |got - want|, whether |got - want| <= tol + tol*|want| holds
+    everywhere)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = bool((diff <= tol + tol * want.abs()).all()) and \
+        bool(torch.isfinite(got).all())
+    return float(diff.max()), ok
+
+
+def phase_build(_build):
+    t0 = time.perf_counter()
+    _build.load_all()
+    wall = time.perf_counter() - t0
+    for name in _build.SOURCES:
+        secs, log = _build.build_info(name)
+        print(f"build {name}.cu: {secs:.1f} s nvcc", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+    print(f"build: {len(_build.SOURCES)} sources in {wall:.1f} s wall "
+          f"(one nvcc each, started together)", flush=True)
+
+
+def phase_model_kernels(dev, fa, ssd):
+    """FA and SSD kernels against their plain versions on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    worst = {"fa": {}, "ssd": {}}
+    fa_cases = [  # B, H, Hkv, S, T, D, window
+        (1, 2, 2, 64, 64, 16, None),
+        (2, 4, 2, 96, 160, 16, None),      # GQA, ragged, S < T
+        (1, 8, 1, 128, 128, 64, None),     # MQA
+        (2, 32, 32, 1, 1, 80, None),       # one row, one key
+        (1, 32, 32, 257, 257, 80, None),   # ragged, equal
+        (1, 4, 2, 300, 77, 80, None),      # S > T
+        (2, 8, 8, 500, 500, 128, 128),     # window
+        (1, 4, 1, 33, 1000, 128, 64),      # MQA, window, S << T
+        (1, 8, 4, 200, 200, 64, 1),        # window 1: each row sees itself
+    ]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Hkv, S, T, D, window in fa_cases:
+            q, k, v = randn(B, H, S, D, dtype=dtype), \
+                randn(B, Hkv, T, D, dtype=dtype), randn(B, Hkv, T, D, dtype=dtype)
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = fa.fa_plain(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err, ok = within(got, want, FA_TOL[dtype])
+            check(ok and got.dtype == dtype,
+                  f"FA kernel != plain at {(B, H, Hkv, S, T, D, window)} "
+                  f"{dtype}: max err {err}")
+            key = str(dtype).removeprefix("torch.")
+            worst["fa"][key] = max(worst["fa"].get(key, 0.0), err)
+            n += 1
+        # the model's (B, S, H, D) layout, passed as (B, H, S, D) views
+        q, k, v = (randn(2, 190, 32, 80, dtype=dtype) for _ in range(3))
+        got = fa.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+        want = fa.fa_plain(*(t.transpose(1, 2) for t in (q, k, v)))
+        torch.cuda.synchronize()
+        err, ok = within(got, want, FA_TOL[dtype])
+        check(ok and got.transpose(1, 2).is_contiguous(),
+              f"FA kernel on the model's layout, {dtype}: max err {err}")
+        n += 1
+    print(f"fa kernel == plain on {n} cases: worst |err| f32 "
+          f"{worst['fa']['float32']:.3e} (tol 2e-5 + 2e-5*|plain|), bf16 "
+          f"{worst['fa']['bfloat16']:.3e} (tol 2e-2 + 2e-2*|plain|)", flush=True)
+
+    ssd_cases = [  # b, T, H, P, N, chunk, with h0
+        (2, 64, 80, 64, 64, 8, False),
+        (1, 256, 80, 64, 64, 64, True),
+        (2, 512, 80, 64, 64, 256, True),
+        (1, 512, 24, 64, 128, 256, False),
+        (2, 96, 24, 64, 128, 32, True),
+        (1, 48, 24, 64, 128, 16, False),
+        (1, 128, 3, 16, 16, 128, True),
+    ]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for cd in (torch.float32, torch.bfloat16):
+            for b, T, H, P, N, chunk, with_h0 in ssd_cases:
+                x = randn(b, T, H, P, dtype=dtype)
+                dt = torch.nn.functional.softplus(randn(b, T, H)) * 0.1
+                A = -torch.exp(randn(H))
+                Bm, Cm = randn(b, T, N, dtype=dtype), randn(b, T, N, dtype=dtype)
+                h0 = randn(b, H, P, N) if with_h0 else None
+                y, h = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                                    compute_dtype=cd)
+                y_p, h_p = ssd.ssd_plain(x, dt, A, Bm, Cm, chunk, h0=h0,
+                                         compute_dtype=cd)
+                torch.cuda.synchronize()
+                ey, oky = within(y, y_p, SSD_TOL[cd])
+                eh, okh = within(h, h_p, SSD_TOL[cd])
+                check(oky and okh,
+                      f"SSD kernel != plain at {(b, T, H, P, N, chunk, with_h0)}"
+                      f" x {dtype} compute {cd}: max err y {ey} h {eh}")
+                key = "compute_" + str(cd).removeprefix("torch.")
+                worst["ssd"][key] = max(worst["ssd"].get(key, 0.0), ey, eh)
+                n += 1
+    print(f"ssd kernel == plain on {n} cases: worst |err| f32 products "
+          f"{worst['ssd']['compute_float32']:.3e} (tol 1e-4 + 1e-4*|plain|), "
+          f"bf16 products {worst['ssd']['compute_bfloat16']:.3e} "
+          f"(tol 5e-2 + 5e-2*|plain|)", flush=True)
+    return worst
+
+
+def _events_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def phase_model_path(dev):
+    """Zamba2-2.7B at full width: prefill through the kernels, the f32
+    consistency check, serving through the ServeEngine."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    param_count, prefill)
+    from repro_torch.models.model import segment_counts
+    cfg = ARCHS[MAIN_ARCH]
+    segs = segment_counts(cfg)
+    g, inner = segs["groups"], segs["ssm_per_group"]     # 9 groups of 5 + 1
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_el = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.hdim}, d_ff {cfg.d_ff}, ssm heads "
+          f"{cfg.ssm_heads} x {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{n_el} tensor elements ({n_bytes / 1e9:.3f} GB), param_count "
+          f"{param_count(cfg)}; init {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
+                            .astype(np.int64)).to(dev)
+    torch.cuda.synchronize()
+
+    reset_counts()                                   # --- counted window ---
+    with torch.no_grad():
+        (logits, cache), ms1 = _events_ms(
+            lambda: prefill(params, {"tokens": toks}, cfg))
+    c1 = read_counts()
+    check(c1["fa"] == g and c1["ssd"] == g * inner and c1["sw"] == 0,
+          f"one prefill launched {c1}, expected fa {g}, ssd {g * inner}")
+    check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    kv = (g, PREFILL_B, PREFILL_S, cfg.n_kv_heads, cfg.hdim)
+    want_shapes = {"h": (g, inner, PREFILL_B, cfg.ssm_heads, cfg.ssm_headdim,
+                         cfg.ssm_state),
+                   "conv": (g, inner, PREFILL_B, cfg.ssm_conv - 1,
+                            cfg.d_inner + 2 * cfg.ssm_state),
+                   "k": kv, "v": kv}
+    check({k: tuple(v.shape) for k, v in cache.items()} == want_shapes,
+          f"prefill cache shapes {[(k, tuple(v.shape)) for k, v in cache.items()]}")
+    check(all(bool(torch.isfinite(v.float()).all()) for v in cache.values()),
+          "prefill cache not finite")
+    del cache
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = prefill(params, {"tokens": toks}, cfg)
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        del out
+        _, ms3 = _events_ms(lambda: prefill(params, {"tokens": toks}, cfg))
+    c3 = read_counts()
+    check(c3["fa"] == 3 * g and c3["ssd"] == 3 * g * inner,
+          f"three prefills launched {c3}, expected fa {3 * g}, "
+          f"ssd {3 * g * inner}")
+    ntok = PREFILL_B * PREFILL_S
+    print(f"prefill B={PREFILL_B} S={PREFILL_S}: {ms1:.3f} ms (first, counted: "
+          f"fa {c1['fa']}, ssd {c1['ssd']} launches), {ms3:.3f} ms steady "
+          f"({ntok / ms3 * 1e3:.1f} tokens/s); host enqueue {enq * 1e3:.3f} ms "
+          f"of {wall2 * 1e3:.3f} ms wall; logits finite, cache shapes ok",
+          flush=True)
+    # where the prefill's device time goes, by kernel name
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+    groups, names, stalled = {}, {}, 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if not us or ev.key.startswith(("cuda", "aten::", "Memcpy", "Memset")):
+            continue
+        name = ev.key
+        if name.startswith("Command Buffer Full"):   # the host waiting, not a kernel
+            stalled += us / 1e3
+            continue
+        low = name.lower()
+        grp = ("fa_kernel" if "fa_kernel" in name else
+               "ssd_kernel" if "ssd_kernel" in name else
+               "gemm" if any(g in low for g in ("gemm", "cutlass", "xmma",
+                                                "cublas", "nvjet")) else
+               "other")
+        groups[grp] = groups.get(grp, 0.0) + us / 1e3
+        names[name] = names.get(name, 0.0) + us / 1e3
+    total = sum(groups.values())
+    if total > 0:
+        print("prefill device time by kernel (torch.profiler): " + ", ".join(
+            f"{g} {t:.3f} ms ({t / total:.3f})" for g, t in
+            sorted(groups.items(), key=lambda kv: -kv[1]))
+            + f"; total {total:.3f} ms; the host waited {stalled:.3f} ms on a "
+            f"full launch queue (\"Command Buffer Full\")", flush=True)
+        print("prefill top kernels: " + "; ".join(
+            f"{n[:60]} {t:.3f} ms" for n, t in
+            sorted(names.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    else:
+        print("prefill device time by kernel: the profiler saw no device "
+              "time (not measured)", flush=True)
+    reset_counts()
+
+    # serving: 8 requests through the ServeEngine, bf16, full width
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                              int(rng.integers(16, 65)))]
+               for _ in range(SERVE_REQS)]
+    before = read_counts()
+    eng = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                      params=params, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
+    t0 = time.perf_counter()
+    results = eng.run()
+    serve_wall = time.perf_counter() - t0
+    check(len(results) == SERVE_REQS, f"served {len(results)} of {SERVE_REQS}")
+    check([r.tag for r in results] == list(range(SERVE_REQS)),
+          f"tags out of order: {[r.tag for r in results]}")
+    check([r.rid for r in results] == list(range(SERVE_REQS)),
+          "requests out of submission order")
+    check(all(len(r.generated) == SERVE_NEW for r in results),
+          f"token counts {[len(r.generated) for r in results]}")
+    solo = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                       params=params, device=dev)
+    solo.submit(Request(rid=0, prompt=prompts[0], max_new=SERVE_NEW))
+    alone = solo.run()[0]
+    check(alone.generated == results[0].generated,
+          f"isolation: request 0 alone {alone.generated} != batched "
+          f"{results[0].generated}")
+    after = read_counts()
+    check(after == before, f"serving launched kernels: {before} -> {after}")
+    lat = eng._latency
+    rep = eng.last_report
+    print(f"serve {SERVE_REQS} requests (prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, max_new {SERVE_NEW}, max_batch "
+          f"{SERVE_BATCH}, max_len {SERVE_LEN}): {rep.meta['tokens']} tokens in "
+          f"{eng.steps_run} decode steps, {serve_wall:.3f} s, "
+          f"{rep.gauges['serve.tokens_per_s']:.2f} tokens/s; latency p50 "
+          f"{lat.p50 / 1e3:.1f} ms p99 {lat.p99 / 1e3:.1f} ms; tags in order; "
+          f"request 0 alone gives the same tokens; serving runs decode_step "
+          f"only, so no kernel (as in the reference)", flush=True)
+    # the same decode step at the engine's batch, outside the farm
+    cache = init_cache(cfg, SERVE_BATCH, SERVE_LEN, device=dev)
+    one = {"tokens": torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device=dev)}
+    with torch.no_grad():
+        for t in range(2):
+            _, cache = decode_step(params, one, cache, t, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(2, 18):
+            _, cache = decode_step(params, one, cache, t, cfg)
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        bare = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            decode_step(params, one, cache, 18, cfg)
+            torch.cuda.synchronize()
+    n_kernels = sum(ev.count for ev in prof.key_averages()
+                    if getattr(ev, "device_time_total", 0)
+                    and not ev.key.startswith(("cuda", "aten::",
+                                               "Command Buffer Full")))
+    print(f"decode_step alone, batch {SERVE_BATCH}: {bare / 16 * 1e3:.3f} ms/step "
+          f"wall, host enqueue {enq / 16 * 1e3:.3f} ms/step, {n_kernels} device "
+          f"kernels per step (torch.profiler); in the engine "
+          f"{serve_wall / eng.steps_run * 1e3:.3f} ms/step", flush=True)
+    del eng, solo, cache
+
+    # consistency: f32 prefill (kernels) against f32 decode (no kernel)
+    prompt = toks[:1, :CONSIST_S]
+    with torch.no_grad():
+        bf16_logits = prefill(params, {"tokens": prompt}, cfg)[0]
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_params(cfg32, 0, device=dev)     # the same draws, unrounded
+    with torch.no_grad():
+        before = read_counts()
+        p_logits = prefill(params, {"tokens": prompt}, cfg32)[0]
+        launched = {k: v - before[k] for k, v in read_counts().items()}
+        check(launched == {"sw": 0, "fa": g, "ssd": g * inner},
+              f"f32 prefill launched {launched}")
+        with _plain_versions():
+            plain_logits = prefill(params, {"tokens": prompt}, cfg32)[0]
+        cache = init_cache(cfg32, 1, CONSIST_S, device=dev)
+        t0 = time.perf_counter()
+        for t in range(CONSIST_S):
+            d_logits, cache = decode_step(params, {"tokens": prompt[:, t:t + 1]},
+                                          cache, t, cfg32)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    err = float((p_logits - d_logits).abs().max())
+    err_plain = float((plain_logits - d_logits).abs().max())
+    err_kp = float((p_logits - plain_logits).abs().max())
+    err_bf16 = float((bf16_logits - d_logits).abs().max())
+    scale = float(d_logits.abs().max())
+    print(f"consistency f32, S={CONSIST_S}: max |prefill - decode| last logits "
+          f"{err:.3e} (tol {CONSIST_TOL}, logits up to {scale:.3f}); the plain "
+          f"versions' prefill is {err_plain:.3e} from the decode and "
+          f"{err_kp:.3e} from the kernels'; the bf16 prefill is {err_bf16:.3e} "
+          f"from the f32 decode, so bf16 fails the tolerance; argmax "
+          f"prefill {int(p_logits.argmax())} decode {int(d_logits.argmax())}; "
+          f"{CONSIST_S} decode steps {dec_s:.2f} s", flush=True)
+    check(bool(torch.isfinite(p_logits).all()), "f32 prefill logits not finite")
+    check(err <= CONSIST_TOL, f"f32 prefill vs decode: {err} > {CONSIST_TOL}")
+    check(err_bf16 > CONSIST_TOL,
+          f"bf16 prefill vs f32 decode {err_bf16} is within {CONSIST_TOL}: "
+          f"the tolerance would not catch bf16")
+    del params, cache
+    torch.cuda.empty_cache()
+    return c1, {"prefill_ms": ms3, "first_prefill_ms": ms1}
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Route the model's attention and SSD calls to the kernels' plain
+    versions on the card, for the consistency check only."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import attention, ssm
+
+    def plain_ssd(x, dt, A, B, C, *, chunk, h0=None, compute_dtype=torch.float32):
+        return ssd.ssd_plain(x, dt, A, B, C, min(chunk, x.shape[1]), h0=h0,
+                             compute_dtype=compute_dtype)
+    saved = attention.flash_attention, ssm.ssd_scan
+    attention.flash_attention, ssm.ssd_scan = fa.fa_plain, plain_ssd
+    try:
+        yield
+    finally:
+        attention.flash_attention, ssm.ssd_scan = saved
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_model_timing(dev, fa, ssd):
+    """FA and SSD at the main path's shapes: kernel, plain, bound, library."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    B, S, H, D = PREFILL_B, PREFILL_S, 32, 80
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))    # the model's views
+    got = fa.flash_attention(qv, kv, vv)
+    want = fa.fa_plain(qv, kv, vv)
+    torch.cuda.synchronize()
+    err, ok = within(got, want, FA_TOL[torch.bfloat16])
+    check(ok, f"FA kernel != plain at the main path's shape: {err}")
+    kern = cuda_ms(lambda: fa.flash_attention(qv, kv, vv), iters=10, warmup=2)
+    plain = cuda_ms(lambda: fa.fa_plain(qv, kv, vv), iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_ms(lambda: sdpa(qv, kv, vv, is_causal=True), iters=10, warmup=2)
+    lib_err = float((sdpa(qv, kv, vv, is_causal=True).float() - want.float()).abs().max())
+    pairs = S * (S + 1) // 2                 # causal (query, key) pairs, S == T
+    t_ops = 4 * B * H * D * pairs / PEAK_BF16
+    t_bytes = 4 * B * H * S * D * 2 / PEAK_BYTES    # q, k, v read, o written
+    rows["fa"] = dict(ms=kern, plain_ms=plain, library_ms=lib,
+                      bound_ms=max(t_ops, t_bytes) * 1e3,
+                      bound_by="operations" if t_ops >= t_bytes else "bytes",
+                      err=err)
+    print(f"timing fa B={B} H={H} S=T={S} D={D} causal bf16: kernel {kern:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {rows['fa']['bound_ms']:.4f} ms "
+          f"({rows['fa']['bound_by']}: {4 * B * H * D * pairs / 1e9:.2f} GFLOP at "
+          f"989 TFLOP/s bf16; bytes {t_bytes * 1e3:.4f} ms), library "
+          f"scaled_dot_product_attention(is_causal=True) {lib:.4f} ms (|err| vs "
+          f"plain {lib_err:.3e}); kernel |err| vs plain {err:.3e}", flush=True)
+    del q, k, v, qv, kv, vv, got, want
+
+    b, T, Hs, P, N, l = PREFILL_B, PREFILL_S, 80, 64, 64, 256
+    x = torch.randn((b, T, Hs, P), generator=gen, device=dev).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn((b, T, Hs), generator=gen,
+                                                  device=dev)) * 0.1
+    A = -torch.exp(torch.randn((Hs,), generator=gen, device=dev))
+    Bm, Cm = (torch.randn((b, T, N), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    y, h = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=l)
+    y_p, h_p = ssd.ssd_plain(x, dt, A, Bm, Cm, l)
+    torch.cuda.synchronize()
+    ey, oky = within(y, y_p, SSD_TOL[torch.float32])
+    eh, okh = within(h, h_p, SSD_TOL[torch.float32])
+    check(oky and okh, f"SSD kernel != plain at the main path's shape: {ey} {eh}")
+    kern = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=l), iters=10, warmup=2)
+    plain = cuda_ms(lambda: ssd.ssd_plain(x, dt, A, Bm, Cm, l), iters=3, warmup=1)
+    nc, tri = T // l, l * (l + 1) // 2
+    flops = b * nc * (2 * N * tri + Hs * (tri + 2 * P * tri + 4 * l * N * P + 2 * P * N))
+    t_ops = flops / PEAK_F32
+    nbytes = (x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
+              + y.numel() * 4 + h.numel() * 4)
+    t_bytes = nbytes / PEAK_BYTES
+    rows["ssd"] = dict(ms=kern, plain_ms=plain, library_ms=None,
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       err=max(ey, eh))
+    print(f"timing ssd b={b} T={T} H={Hs} P={P} N={N} chunk={l} x bf16, f32 "
+          f"products: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{rows['ssd']['bound_ms']:.4f} ms ({rows['ssd']['bound_by']}: "
+          f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32; {nbytes / 1e6:.1f} MB "
+          f"{t_bytes * 1e3:.4f} ms), library: none (no PyTorch call computes "
+          f"the SSD scan); kernel |err| vs plain y {ey:.3e} h {eh:.3e}",
+          flush=True)
+    return rows
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of a checkout (src/repro_torch missing)")
@@ -328,19 +815,18 @@ def main():
 
     from repro_torch import core
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import smith_waterman as sw
-    t0 = time.perf_counter()
-    _build.load("smith_waterman")
-    secs, log = _build.build_info("smith_waterman")
-    print(f"build smith_waterman.cu: {secs:.1f} s nvcc "
-          f"({time.perf_counter() - t0:.1f} s with load)", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    from repro_torch.kernels import ssd_scan as ssd
+    phase_build(_build)
 
     cases, worst = phase_exact(dev, sw, ops, ref)
     launches, runs, _ = phase_main_path(dev, sw, ops, core)
     rows = phase_timing(dev, sw, ops)
+
+    model_worst = phase_model_kernels(dev, fa, ssd)
+    model_launches, _ = phase_model_path(dev)
+    model_rows = phase_model_timing(dev, fa, ssd)
 
     main_row = rows[0]
     kernels = [{
@@ -352,6 +838,21 @@ def main():
         "shapes": [{k: r[k] for k in ("q", "d", "ms", "plain_ms", "bound_ms",
                                       "bound_by")} for r in rows],
     }]
+    for name, source, replaces, shape in (
+            ("fa", FA_SOURCE, FA_REPLACES,
+             f"B={PREFILL_B} H=32 S=T={PREFILL_S} D=80 causal bf16"),
+            ("ssd", SSD_SOURCE, SSD_REPLACES,
+             f"b={PREFILL_B} T={PREFILL_S} H=80 P=64 N=64 chunk=256 f32 products")):
+        r = model_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": model_launches[name],
+            "max_abs_err": max([r["err"], *model_worst[name].values()]),
+            "max_abs_err_by_type": model_worst[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": shape, "launches_per": "one zamba2-2.7b prefill",
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -4,17 +4,22 @@ The reference hands out jax arrays; ``np.asarray`` of one is a read-only
 view, which ``torch.from_numpy`` warns about.  These functions copy, so the
 tensor owns its memory.  Like every entry point of the port they place the
 result on the card unless the caller names another device.
+
+A bfloat16 jax array comes out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` refuses: such leaves go through ``np.float32``
+and back to ``torch.bfloat16``, a round trip that is exact.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from .kernels.ops import resolve_device
 
-__all__ = ["matrix_from_numpy", "profile_from_numpy"]
+__all__ = ["matrix_from_numpy", "profile_from_numpy", "params_from_numpy",
+           "tensor_from_numpy"]
 
 
 def _f32(a: Any, device: Any) -> torch.Tensor:
@@ -41,3 +46,44 @@ def profile_from_numpy(prof: Any, q_len: int, *,
         raise ValueError(f"profile must be (A, Qp) with Qp % 128 == 0 and "
                          f"q_len <= Qp, got {tuple(p.shape)}, q_len={q_len}")
     return p, int(q_len)
+
+
+def tensor_from_numpy(a: Any, *, device: Any = None) -> torch.Tensor:
+    """One array (``np.asarray`` of a jax array) as a tensor of the same
+    dtype; bfloat16 goes through float32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(resolve_device(device))
+
+
+def _tree(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device=device)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: Any, *,
+                      device: Any = None) -> Dict[str, Any]:
+    """The reference's parameter tree (``init_params`` mapped through
+    ``np.asarray``) as the port's: the same keys, shapes and dtypes."""
+    from .models.model import init_params_spec
+    dev = resolve_device(device)
+    want = init_params_spec(cfg)
+    out = _tree(tree, dev)
+    got = {k: (tuple(v.shape), v.dtype) for k, v in _flat(out)}
+    if got != dict(_flat(want)):
+        raise ValueError(f"parameter tree does not match {cfg.name}: "
+                         f"{sorted(set(got) ^ set(dict(_flat(want))))} or "
+                         f"shapes/dtypes differ")
+    return out
+
+
+def _flat(tree: Any, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree

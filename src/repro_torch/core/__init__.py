@@ -4,14 +4,15 @@
 # its threads lowering, the scheduling policies and the vertex tracer.
 # Plain Python: it imports neither torch nor anything of ``repro``.  The
 # reference's procs, mesh and all-to-all backends, out-of-core folds,
-# autotune and live monitor belong to later slices of the port.
+# autotune and live monitor belong to later slices of the port.  The
+# SPMC page pool (``allocator``) backs the serving engine's batch slots.
 from .spsc import EOS, Backoff, SPSCQueue
 from .lockq import LockQueue
 from .sched import (SCHEDULERS, CostModel, OnDemand, RoundRobin, Scheduler,
                     WorkStealing, calibrate_handoff_us, clear_handoff_cache,
                     make_scheduler, spread_cpus)
-from .obs import (Counter, Gauge, Histogram, MetricsRegistry, Trace, Tracer,
-                  VertexTracer, farm_stats_snapshot)
+from .obs import (Counter, Gauge, Histogram, MetricsRegistry, RunReport,
+                  Trace, Tracer, VertexTracer, farm_stats_snapshot)
 from .skeleton import (BACKENDS, GO_ON, AllToAll, EmitMany, Farm, FarmStats,
                        Feedback, FnNode, FusedNode, KeyBatch,
                        LatencyReservoir, LoweringError, Pipeline, Skeleton,
@@ -19,6 +20,7 @@ from .skeleton import (BACKENDS, GO_ON, AllToAll, EmitMany, Farm, FarmStats,
                        ff_node, fuse, lower, walk_stats)
 from .graph import Accelerator, Graph, Net, Token, build
 from .farm import TaskFarm
+from .allocator import PagePool, PoolExhausted
 
 __all__ = [
     "EOS", "Backoff", "SPSCQueue", "LockQueue",
@@ -26,7 +28,8 @@ __all__ = [
     "CostModel", "make_scheduler", "calibrate_handoff_us",
     "clear_handoff_cache", "spread_cpus",
     "Tracer", "VertexTracer", "Trace", "MetricsRegistry", "Counter", "Gauge",
-    "Histogram", "farm_stats_snapshot",
+    "Histogram", "farm_stats_snapshot", "RunReport", "PagePool",
+    "PoolExhausted",
     "BACKENDS", "GO_ON", "EmitMany", "KeyBatch", "ff_node", "FnNode",
     "FusedNode", "FarmStats", "LatencyReservoir", "Skeleton", "Stage",
     "Source", "Pipeline", "Farm", "Feedback", "AllToAll", "compose",

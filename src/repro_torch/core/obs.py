@@ -31,8 +31,10 @@ lowering shares, built around that constraint:
 :class:`MetricsRegistry`
     Counters, gauges and reservoir histograms (p50/p95/p99), plus
     :func:`farm_stats_snapshot`, the plain-dict form of a ``FarmStats``.
-    The reference's ``RunReport`` (one snapshot per program run, merged
-    across runs) belongs to a later slice of this port.
+
+:class:`RunReport`
+    One snapshot per program run (``MetricsRegistry.report``), merged
+    across runs; ``ServeEngine.run`` leaves one on ``last_report``.
 
 Everything here is stdlib-only: no torch, no numpy.
 """
@@ -41,11 +43,11 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 __all__ = [
     "Tracer", "VertexTracer", "Trace", "MetricsRegistry", "Counter",
-    "Gauge", "Histogram", "qualname", "farm_stats_snapshot",
+    "Gauge", "Histogram", "qualname", "farm_stats_snapshot", "RunReport",
 ]
 
 #: event-kind vocabulary (the typed part of "typed events"); spans and
@@ -357,16 +359,55 @@ class Histogram:
                 "cap": self.cap, "samples": list(self._buf)}
 
 
+def _percentile_sorted(s: List[float], p: float) -> float:
+    if not s:
+        return 0.0
+    return s[min(len(s) - 1, max(0, int(p / 100.0 * len(s))))]
+
+
+def _merge_hist_snapshots(a: dict, b: dict) -> dict:
+    """Commutative merge of two histogram snapshots.  When both carry
+    reservoir samples, concatenate them (sorted, evenly subsampled back
+    to the window cap when over it) and recompute the percentiles over
+    the union — cross-run p95/p99 then cover both runs' observations.
+    Sorting before the deterministic even-spaced subsample makes the
+    result order-independent, so ``a.merge(b) == b.merge(a)`` (pinned by
+    the commutativity test).  Snapshots from before samples shipped fall
+    back to the old count-weighted average."""
+    n1, n2 = a.get("count", 0), b.get("count", 0)
+    n = n1 + n2
+    merged = {"count": n, "max": max(a.get("max", 0.0), b.get("max", 0.0))}
+    s1, s2 = a.get("samples"), b.get("samples")
+    if s1 is not None and s2 is not None:
+        cap = int(a.get("cap") or b.get("cap") or 2048)
+        samples = sorted(list(s1) + list(s2))
+        if len(samples) > cap:
+            samples = [samples[i * len(samples) // cap] for i in range(cap)]
+        merged["cap"] = cap
+        merged["samples"] = samples
+        merged["mean"] = (a.get("mean", 0.0) * n1 +
+                          b.get("mean", 0.0) * n2) / n if n else 0.0
+        for p, key in ((50, "p50"), (95, "p95"), (99, "p99")):
+            merged[key] = _percentile_sorted(samples, p)
+    else:
+        for key in ("mean", "p50", "p95", "p99"):
+            x, y = a.get(key, 0.0), b.get(key, 0.0)
+            merged[key] = (x * n1 + y * n2) / n if n else 0.0
+    return merged
+
+
 class MetricsRegistry:
-    """Named counters/gauges/histograms.
+    """Named counters/gauges/histograms plus the ``watch()`` hook.
 
     One registry per program (or shared across programs — names are the
-    namespace)."""
+    namespace).  ``report()`` snapshots everything into a
+    :class:`RunReport`; ``finalize(report)`` fires every watcher with it."""
 
     def __init__(self):
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._hists: Dict[str, Histogram] = {}
+        self._watchers: List[Callable[["RunReport"], None]] = []
 
     def counter(self, name: str) -> Counter:
         c = self._counters.get(name)
@@ -385,6 +426,25 @@ class MetricsRegistry:
         if h is None:
             h = self._hists[name] = Histogram(name, cap)
         return h
+
+    def watch(self, fn: Callable[["RunReport"], None]) -> None:
+        self._watchers.append(fn)
+
+    def report(self, *, farms: Optional[Dict[str, dict]] = None,
+               queues: Optional[Dict[str, int]] = None,
+               pool: Optional[dict] = None,
+               meta: Optional[dict] = None) -> "RunReport":
+        return RunReport(
+            counters={k: c.value for k, c in self._counters.items()},
+            gauges={k: g.value for k, g in self._gauges.items()},
+            hists={k: h.snapshot() for k, h in self._hists.items()},
+            farms=dict(farms or {}), queues=dict(queues or {}),
+            pool=dict(pool or {}), meta=dict(meta or {}))
+
+    def finalize(self, report: "RunReport") -> "RunReport":
+        for fn in self._watchers:
+            fn(report)
+        return report
 
 
 def farm_stats_snapshot(stats: Any) -> dict:
@@ -412,3 +472,66 @@ def farm_stats_snapshot(stats: Any) -> dict:
         d["latency"] = {"count": lat.count, "p50": pct(50), "p95": pct(95),
                         "p99": pct(99)}
     return d
+
+
+class RunReport:
+    """The single snapshot attached to every program run: registry
+    metrics + absorbed ``FarmStats`` (keyed by IR-path qualname, so two
+    farms never collide), queue high-water marks, spawn-pool stats, and
+    free-form meta (vertex/edge topology, wall time, item count).
+
+    ``merge`` folds another report in (counters add, gauges last-write,
+    queue high-waters max) — the procs collector uses it to merge the
+    per-run child telemetry, and callers can fold many runs into one
+    trend point.  The reference's ``to_profile`` (an autotune ``Profile``
+    for online re-tuning) comes with the port of autotune."""
+
+    schema = "run-report/1"
+
+    def __init__(self, counters: Optional[Dict[str, int]] = None,
+                 gauges: Optional[Dict[str, float]] = None,
+                 hists: Optional[Dict[str, dict]] = None,
+                 farms: Optional[Dict[str, dict]] = None,
+                 queues: Optional[Dict[str, int]] = None,
+                 pool: Optional[dict] = None,
+                 meta: Optional[dict] = None):
+        self.counters = dict(counters or {})
+        self.gauges = dict(gauges or {})
+        self.hists = dict(hists or {})
+        self.farms = dict(farms or {})
+        self.queues = dict(queues or {})
+        self.pool = dict(pool or {})
+        self.meta = dict(meta or {})
+
+    def merge(self, other: "RunReport") -> "RunReport":
+        for k, v in other.counters.items():
+            self.counters[k] = self.counters.get(k, 0) + v
+        self.gauges.update(other.gauges)
+        for k, h in other.hists.items():
+            mine = self.hists.get(k)
+            if mine is None:
+                self.hists[k] = dict(h)
+            else:
+                self.hists[k] = _merge_hist_snapshots(mine, h)
+        self.farms.update(other.farms)
+        for k, v in other.queues.items():
+            if v > self.queues.get(k, -1):
+                self.queues[k] = v
+        self.pool.update(other.pool)
+        self.meta.update(other.meta)
+        return self
+
+    def to_json(self) -> dict:
+        return {"schema": self.schema, "counters": self.counters,
+                "gauges": self.gauges, "hists": self.hists,
+                "farms": self.farms, "queues": self.queues,
+                "pool": self.pool, "meta": self.meta}
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=2, sort_keys=True)
+
+    def __repr__(self) -> str:
+        return (f"RunReport(counters={len(self.counters)}, "
+                f"hists={sorted(self.hists)}, farms={sorted(self.farms)}, "
+                f"queues={len(self.queues)})")

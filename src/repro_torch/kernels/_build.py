@@ -4,7 +4,8 @@ Each source has a plain C interface, so it compiles in seconds without
 PyTorch's headers.  The shared library goes into ``build/repro_torch/`` at
 the root of the checkout (git-ignored), named by a hash of the source and
 the flags, so an edited source never loads a stale build.  The build runs
-once per process, under a lock, at the first launch — never at import.
+once per process, under a lock per source, at the first launch — never at
+import; different sources build concurrently (``load_all``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load", "build_info"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "load", "load_all",
+           "build_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -26,7 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 
-_LOCK = threading.Lock()
+SOURCES = ("smith_waterman", "flash_attention", "ssd_scan")
+
+_LOCK = threading.Lock()                      # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _INFO: Dict[str, Tuple[float, str]] = {}  # name -> (build seconds, nvcc log)
 
@@ -69,10 +74,34 @@ def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu`` (built on first
     call; raises with nvcc's output if the build fails)."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             lib = _LIBS[name] = _build(name)
         return lib
+
+
+def load_all(names=SOURCES) -> Dict[str, ctypes.CDLL]:
+    """Build (or reuse) every named source at once, one nvcc each; raises
+    the first build's error after all have finished."""
+    libs: Dict[str, ctypes.CDLL] = {}
+    errors: List[BaseException] = []
+
+    def one(name: str) -> None:
+        try:
+            libs[name] = load(name)
+        except BaseException as e:  # re-raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return libs
 
 
 def build_info(name: str) -> Tuple[float, str]:

@@ -1,10 +1,9 @@
-"""Public Smith-Waterman entry point and its front end: alphabet, BLOSUM50,
-query profiles.
+"""Public kernel entry points: Smith-Waterman with its front end
+(alphabet, BLOSUM50, query profiles), flash attention and the SSD scan.
 
-Counterpart of the Smith-Waterman half of ``repro.kernels.ops``.  Entry
-points run on the card: ``device=None`` means ``cuda``, and raises when
-there is none.  Only an explicit ``device="cpu"`` takes the plain PyTorch
-version of the kernel.
+Counterpart of ``repro.kernels.ops``.  Entry points run on the card:
+``device=None`` means ``cuda``, and raises when there is none.  Only an
+explicit ``device="cpu"`` takes the plain PyTorch version of a kernel.
 """
 from __future__ import annotations
 
@@ -14,10 +13,13 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .flash_attention import flash_attention
 from .smith_waterman import DEFAULT_TILE, sw_batch
+from .ssd_scan import ssd_scan
 
-__all__ = ["smith_waterman", "build_profile", "BLOSUM50", "AA_ALPHABET",
-           "encode_seq", "resolve_device"]
+__all__ = ["smith_waterman", "flash_attention_op", "ssd_scan_op",
+           "build_profile", "BLOSUM50", "AA_ALPHABET", "encode_seq",
+           "resolve_device"]
 
 AA_ALPHABET = "ARNDCQEGHILKMFPSTWYVBZX*"        # 24 codes, BLOSUM order
 
@@ -103,3 +105,26 @@ def smith_waterman(query: Any, subject: Any, *, gap_open: float = 10.0,
     subj = F.pad(subject, (0, dp - dlen), value=matrix.shape[0])
     return sw_batch(prof, subj[None], gap_open=gap_open,
                     gap_extend=gap_extend, q_len=q_len)[0]
+
+
+def flash_attention_op(q: Any, k: Any, v: Any, *, causal: bool = True,
+                       window: Optional[int] = None,
+                       device: Optional[Any] = None) -> torch.Tensor:
+    """Flash attention of q (B,H,S,D) against k/v (B,Hkv,T,D) on
+    ``device``; returns (B,H,S,D) in q's dtype.  The reference's ``bq`` and
+    ``bk`` are its TPU tiling: the CUDA kernel keeps its own tiles."""
+    dev = resolve_device(device)
+    q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan_op(x: Any, dt: Any, A: Any, B: Any, C: Any, *, chunk: int = 256,
+                device: Optional[Any] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD chunk scan on ``device``: x (b,T,H,P), dt (b,T,H) f32, A (H,)
+    f32, B/C (b,T,N).  Returns y (b,T,H,P) f32 and the final state
+    (b,H,P,N) f32."""
+    dev = resolve_device(device)
+    x, dt, A, B, C = (torch.as_tensor(t, device=dev) for t in (x, dt, A, B, C))
+    return ssd_scan(x.contiguous(), dt.float().contiguous(),
+                    A.float().contiguous(), B.contiguous(), C.contiguous(),
+                    chunk=chunk)

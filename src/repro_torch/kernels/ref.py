@@ -1,17 +1,18 @@
 """Oracles for the port's kernels.
 
-Counterpart of the Smith-Waterman half of ``repro.kernels.ref``.  Each
-oracle uses a *different* mechanism from its kernel — here a sequential
-scan over the query for F instead of the closed-form prefix-max — so that
+Counterpart of ``repro.kernels.ref``.  Each oracle uses a *different*
+mechanism from its kernel — a sequential scan over the query for F instead
+of the closed-form prefix-max, a materialised softmax instead of the online
+one, the token-by-token recurrence instead of the chunked scan — so that
 agreement is evidence of correctness.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["sw_ref", "sw_numpy"]
+__all__ = ["sw_ref", "sw_numpy", "attention_ref", "ssd_ref"]
 
 NEG = -1e9
 
@@ -73,3 +74,35 @@ def sw_numpy(query: str, subject: str, score_fn, gap_open: float, gap_extend: fl
                           E[i, j], F[i, j])
             best = max(best, H[i, j])
     return best
+
+
+# --------------------------------------------------------------------------
+# Flash attention oracle (materialised, fp32)
+# --------------------------------------------------------------------------
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """q (B,H,S,D); k/v (B,Hkv,T,D). Returns (B,H,S,D)."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    k = torch.repeat_interleave(k, g, dim=1)
+    v = torch.repeat_interleave(v, g, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q, k).float() * D ** -0.5
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype), v)
+
+
+# --------------------------------------------------------------------------
+# SSD oracle: token-by-token recurrence (see also models/ssm.ssd_reference)
+# --------------------------------------------------------------------------
+def ssd_ref(x, dt, A, B, C, h0=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    from ..models.ssm import ssd_reference
+    return ssd_reference(x, dt, A, B, C, h0=h0)

@@ -1,0 +1,11 @@
+"""The port's model stack (counterpart of ``repro.models``): the dense,
+SSM and hybrid families, with ``prefill`` running the hand-written
+flash-attention and SSD kernels on the card."""
+from .config import ModelConfig, active_param_count, param_count
+from .model import (decode_step, init_cache, init_params, init_params_spec,
+                    prefill)
+
+__all__ = [
+    "ModelConfig", "param_count", "active_param_count",
+    "init_params", "init_params_spec", "prefill", "decode_step", "init_cache",
+]

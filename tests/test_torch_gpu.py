@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA Smith-Waterman kernel held
 against its plain PyTorch version on the card, exactly, and the farm search
-launching it once per task.  They carry the ``gpu`` marker and skip where
-there is no card.  This file imports neither jax nor the reference package,
+launching it once per task; the flash-attention and SSD kernels against
+their plain versions; the Zamba2 smoke prefill launching both.  They carry
+the ``gpu`` marker and skip where there is no card.  This file imports neither jax nor the reference package,
 so it runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -67,3 +68,122 @@ def test_sw_search_via_farm_on_card(dev):
     assert sw.launch_count() - before == len(db)
     prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
     assert got == [float(sw.sw_plain(prof, s, 10.0, 2.0, q_len)) for s in db]
+
+
+# -- flash attention and SSD kernels against their plain versions ---------
+# FA tolerance: 2e-5 in f32, 2e-2 in bf16 (the reference's own,
+# tests/test_kernels.py:93): the softmax sums run in another order.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,window", [
+    (1, 2, 2, 64, 64, 16, None),
+    (2, 4, 2, 96, 160, 32, None),    # GQA + ragged
+    (1, 8, 1, 128, 128, 64, None),   # MQA
+    (2, 4, 4, 1, 1, 80, None),       # one row, one key
+    (1, 4, 4, 200, 200, 80, 48),     # window, ragged tiles
+    (1, 2, 1, 77, 300, 128, None),   # S < T
+])
+def test_fa_kernel_equals_plain_on_card(dev, dtype, B, H, Hkv, S, T, D, window):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S * 7 + T)
+    q = torch.randn((B, H, S, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, T, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, T, D), generator=g, device=dev).to(dtype)
+    before = fa.launch_count()
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    assert fa.launch_count() == before + 1
+    want = fa.fa_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_fa_kernel_takes_the_models_layout(dev):
+    """(B,S,H,D) tensors passed as (B,H,S,D) views: no copy, same result."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 70, 4, 80), generator=g, device=dev)
+               for _ in range(3))
+    got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa.fa_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def _ssd_inputs(dev, b, T, H, P, N, dtype, seed, with_h0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, T, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, T, H), generator=g, device=dev)) * 0.1
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    B = torch.randn((b, T, N), generator=g, device=dev).to(dtype)
+    C = torch.randn((b, T, N), generator=g, device=dev).to(dtype)
+    h0 = torch.randn((b, H, P, N), generator=g, device=dev) if with_h0 else None
+    return x, dt, A, B, C, h0
+
+
+# SSD tolerance: 1e-4 with f32 products (tests/test_kernels.py:146), chunk
+# sums of up to 256 terms taken in another order; 5e-2 with bf16 products,
+# the reference's bf16 tolerance: a sum in another order can round one
+# bf16 operand to its neighbour.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,T,H,P,N,chunk,with_h0", [
+    (1, 32, 2, 8, 16, 8, False),
+    (2, 64, 3, 8, 16, 16, True),
+    (1, 128, 4, 16, 32, 32, False),
+    (1, 512, 5, 64, 64, 256, True),
+    (1, 256, 3, 64, 128, 128, False),
+])
+def test_ssd_kernel_equals_plain_on_card(dev, dtype, cd, b, T, H, P, N,
+                                         chunk, with_h0):
+    from repro_torch.kernels import ssd_scan as ssd
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, b, T, H, P, N, dtype, T + H, with_h0)
+    before = ssd.launch_count()
+    y, h = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0, compute_dtype=cd)
+    assert ssd.launch_count() == before + 1
+    y_p, h_p = ssd.ssd_plain(x, dt, A, B, C, chunk, h0=h0, compute_dtype=cd)
+    torch.cuda.synchronize()
+    tol = 1e-4 if cd == torch.float32 else 5e-2
+    torch.testing.assert_close(y, y_p, atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_smoke_prefill_runs_the_kernels(dev, dtype):
+    """One prefill of the Zamba2 smoke model (2 groups of 5 Mamba2 blocks +
+    the shared attention block) on the card launches FA once per group and
+    SSD once per Mamba2 block, and agrees with the plain path on the CPU
+    with the same weights: 1e-4 of the logits' scale in f32 (sums in
+    another order), 5e-2 in bf16 (bf16 activations rounded at other
+    points)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["zamba2-2.7b"].smoke().replace(dtype=dtype)
+    params = init_params(cfg, 0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 32))).to(dev)
+    fa0, ssd0 = fa.launch_count(), ssd.launch_count()
+    logits, cache = prefill(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_count() - fa0 == 2
+    assert ssd.launch_count() - ssd0 == 10
+    assert torch.isfinite(logits).all()
+    want, _ = prefill(_to(params, "cpu"), {"tokens": toks.cpu()}, cfg)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    scale = max(1.0, float(want.abs().max()))
+    assert float((logits.cpu() - want).abs().max()) <= tol * scale

@@ -12,6 +12,16 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
+PORT_MODULES = [
+    "repro_torch", "repro_torch.core", "repro_torch.core.allocator",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.ssd_scan", "repro_torch.convert",
+    "repro_torch.configs", "repro_torch.models", "repro_torch.models.config",
+    "repro_torch.models.layers", "repro_torch.models.attention",
+    "repro_torch.models.ssm", "repro_torch.models.model",
+    "repro_torch.launch.serve",
+]
 
 
 def _top(module: str) -> str:
@@ -49,9 +59,7 @@ def test_ast_walk_tells_repro_torch_from_repro(tmp_path):
 
 def test_port_import_leaves_jax_repro_triton_unloaded():
     code = ("import sys\n"
-            "import repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.kernels.ref, repro_torch.kernels.smith_waterman, "
-            "repro_torch.convert\n"
+            f"import {', '.join(PORT_MODULES)}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -77,9 +85,19 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["spsc", "lockq", "obs", "sched",
-                                  "skeleton", "graph", "farm"])
+                                  "skeleton", "graph", "farm", "allocator"])
 def test_runtime_copies_stay_plain_python(name):
     """The runtime copies import neither torch nor numpy: like the
     reference's, they are plain Python."""
     mods = {_top(m) for _, m in _imports(PORT / "core" / f"{name}.py")}
     assert not mods & {"torch", "numpy", *FORBIDDEN}, mods
+
+
+def test_every_port_module_is_covered():
+    """The import check above names every module of the package."""
+    found = {".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+             .removesuffix(".__init__") for p in PORT.rglob("*.py")}
+    skip = {m for m in found if m.startswith("repro_torch.configs.")
+            or m.startswith("repro_torch.core.") or m == "repro_torch.kernels"
+            or m in ("repro_torch.kernels._build", "repro_torch.launch")}
+    assert found - skip <= set(PORT_MODULES), sorted(found - skip - set(PORT_MODULES))

@@ -1,0 +1,123 @@
+"""The port's serving engine, on the CPU.
+
+The port's form of tests/test_runtime.py:164-205 (order and isolation,
+resume after a truncated run, recycled slots), and the port's
+``ServeEngine`` against the reference's with the same converted weights:
+the same greedy tokens per request.
+"""
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import ARCHS as JARCHS
+from repro.launch.serve import Request as JRequest
+from repro.launch.serve import ServeEngine as JServeEngine
+from repro.models import init_params as jinit
+from repro_torch import convert
+from repro_torch.configs import ARCHS
+from repro_torch.core import RunReport
+from repro_torch.launch.serve import Request, ServeEngine
+
+CPU = "cpu"
+
+
+def _prompts(cfg, n, seed=1, lo=2, hi=6):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi)))]
+            for _ in range(n)]
+
+
+def test_serve_engine_order_and_isolation():
+    cfg = ARCHS["phi3-mini-3.8b"].smoke()
+    eng = ServeEngine(cfg, max_batch=3, max_len=128, seed=0, device=CPU)
+    prompts = _prompts(cfg, 7)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=5))
+    results = eng.run()
+    assert len(results) == 7
+    assert [r.tag for r in results] == list(range(7))  # order-preserving
+    assert all(len(r.generated) == 5 for r in results)
+    assert isinstance(eng.last_report, RunReport)
+    assert eng.last_report.counters["serve.tokens"] == 35
+    assert eng.last_report.meta["device"] == CPU
+    # isolation: a request's output depends only on its own prompt
+    eng2 = ServeEngine(cfg, max_batch=3, max_len=128, seed=0, device=CPU)
+    eng2.submit(Request(rid=0, prompt=prompts[0], max_new=5))
+    solo = eng2.run()[0]
+    batched = next(r for r in results if r.rid == 0)
+    assert solo.generated == batched.generated
+
+
+def test_serve_engine_resumes_after_truncated_run():
+    """A run() cut short by max_steps strands its batch mid-generation; a
+    later run() with no new submissions seeds a tick and finishes it."""
+    cfg = ARCHS["phi3-mini-3.8b"].smoke()
+    eng = ServeEngine(cfg, max_batch=2, max_len=128, seed=0, device=CPU)
+    eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new=4))
+    assert eng.run(max_steps=2) == []      # budget exhausted mid-prompt
+    results = eng.run()
+    assert len(results) == 1 and len(results[0].generated) == 4
+
+
+def test_serve_engine_recycles_slots():
+    cfg = ARCHS["phi3-mini-3.8b"].smoke()
+    eng = ServeEngine(cfg, max_batch=2, max_len=200, device=CPU)
+    for i in range(6):  # 6 requests through 2 slots
+        eng.submit(Request(rid=i, prompt=[1, 2, 3], max_new=4))
+    results = eng.run()
+    assert len(results) == 6
+    assert eng.pool.allocated == 6
+
+
+def test_serve_engine_refuses_slo_until_monitor_is_ported():
+    with pytest.raises(NotImplementedError, match="monitor"):
+        ServeEngine(ARCHS["phi3-mini-3.8b"].smoke(), device=CPU, slo=object())
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b"])
+def test_serve_engine_generates_the_references_tokens(arch):
+    """Both engines, f32, the same converted weights and requests (more
+    requests than slots, so slots are recycled): the same tokens per
+    request, in the same tag order.  Greedy argmax over f32 logits that
+    agree to ~1e-6 (test_torch_models.py)."""
+    jcfg = JARCHS[arch].smoke().replace(dtype="float32")
+    cfg = ARCHS[arch].smoke().replace(dtype="float32")
+    jp = jinit(jcfg, jax.random.PRNGKey(3))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device=CPU)
+    prompts = _prompts(cfg, 5, seed=2)
+    jeng = JServeEngine(jcfg, max_batch=3, max_len=64, params=jp)
+    teng = ServeEngine(cfg, max_batch=3, max_len=64, params=tp, device=CPU)
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=i, prompt=list(p), max_new=4))
+        teng.submit(Request(rid=i, prompt=list(p), max_new=4))
+    want = [(r.rid, r.tag, r.generated) for r in jeng.run()]
+    got = [(r.rid, r.tag, r.generated) for r in teng.run()]
+    assert got == want
+    assert teng.steps_run == jeng.steps_run
+
+
+@pytest.mark.parametrize("split", [0, 3, 7])
+def test_run_report_matches_the_reference(split):
+    """``MetricsRegistry.report``/``finalize`` and ``RunReport.merge`` give
+    the reference's wire form on the same observations, split across two
+    runs at ``split``."""
+    from repro.core import obs as jobs
+    from repro_torch.core import obs as tobs
+    values = [float(v) for v in np.random.default_rng(split).integers(1, 500, 9)]
+    out = {}
+    for name, mod in (("ref", jobs), ("port", tobs)):
+        seen = []
+        reports = []
+        for part in (values[:split], values[split:]):
+            reg = mod.MetricsRegistry()
+            reg.watch(seen.append)
+            reg.counter("serve.tokens").inc(len(part))
+            reg.gauge("serve.tokens_per_s").set(sum(part))
+            for v in part:
+                reg.histogram("serve.request_latency_us").observe(v)
+            reports.append(reg.finalize(reg.report(
+                queues={"in": len(part)}, meta={"part": len(reports)})))
+        assert seen == reports          # each registry's watcher fired once
+        out[name] = reports[0].merge(reports[1]).to_json()
+    assert out["port"] == out["ref"]
+    assert out["port"]["counters"]["serve.tokens"] == len(values)
