@@ -21,11 +21,13 @@ Phases, each on lines of its own; any failed check exits non-zero:
   4. the SW main path: a 4096-subject database through ``TaskFarm`` and
      through ``Pipeline(Farm, Stage)``, launch counts, order, scores;
   5. SW kernel, plain-version and bound times at the main path's shapes;
-  6. FA and SSD kernels against their plain versions on many shapes;
+  6. FA and SSD kernels against their plain versions on many shapes (the
+     bf16 FA kernel, wgmma with TMA loads, also on its edges: every head
+     dim, ragged S and T, q_offset, S > T, GQA/MQA, windows, strided views);
   7. the Zamba2 main path: prefill (9 FA + 45 SSD launches each), the
      f32 prefill-against-decode consistency check, serving;
   8. FA and SSD kernel, plain, bound and library times at the main path's
-     shapes;
+     shapes, and the FA kernel's TFLOP/s and share of its bound;
   9. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -81,6 +83,29 @@ SERVE_REQS, SERVE_BATCH, SERVE_LEN, SERVE_NEW = 8, 4, 256, 16
 # bf16 neighbour).  |kernel - plain| <= tol + tol * |plain| elementwise.
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# The bf16 FA kernel's edges (B, H, Hkv, S, T, D, window, q_offset, causal):
+# every head dim; S and T of 1, 63, 65, 257 and below its 128-row kv tile;
+# S < T with q_offset = T - S; S > T; GQA and MQA; windows 1, 64 and 128.
+FA_BF16_EDGES = [
+    *[(1, 2, 1, 129, 200, d, None, 0, True) for d in (16, 32, 48, 64, 80,
+                                                      96, 112, 128)],
+    (2, 4, 2, 1, 1, 80, None, 0, True),
+    (1, 4, 4, 63, 63, 80, None, 0, True),
+    (1, 4, 4, 65, 65, 48, None, 0, True),
+    (1, 4, 4, 257, 257, 80, None, 0, True),
+    (1, 4, 2, 63, 65, 64, None, 2, True),
+    (1, 4, 2, 65, 257, 80, None, 192, True),
+    (1, 32, 8, 257, 4096, 80, None, 3839, True),
+    (1, 4, 4, 257, 63, 80, None, 0, True),
+    (1, 4, 4, 300, 77, 128, None, 0, True),
+    (2, 8, 1, 200, 200, 80, None, 0, True),
+    (1, 8, 2, 300, 300, 80, 1, 0, True),
+    (1, 8, 2, 300, 300, 80, 64, 0, True),
+    (1, 4, 4, 500, 500, 128, 128, 0, True),
+    (1, 4, 1, 33, 1000, 64, 64, 967, True),
+    (1, 2, 2, 100, 300, 80, None, 0, False),
+]
+FA_SIMT_MS = 7.8476           # the replaced SIMT bf16 kernel at the main shape (PERF.md §6)
 
 
 class CheckFailed(Exception):
@@ -379,7 +404,7 @@ def phase_build(_build):
         secs, log = _build.build_info(name)
         print(f"build {name}.cu: {secs:.1f} s nvcc", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     print(f"build: {len(_build.SOURCES)} sources in {wall:.1f} s wall "
           f"(one nvcc each, started together)", flush=True)
@@ -429,6 +454,19 @@ def phase_model_kernels(dev, fa, ssd):
         err, ok = within(got, want, FA_TOL[dtype])
         check(ok and got.transpose(1, 2).is_contiguous(),
               f"FA kernel on the model's layout, {dtype}: max err {err}")
+        n += 1
+    # the bf16 (wgmma/TMA) kernel's edges, as tests/test_torch_gpu.py
+    for B, H, Hkv, S, T, D, window, q_offset, causal in FA_BF16_EDGES:
+        q = randn(B, H, S, D, dtype=torch.bfloat16)
+        k, v = (randn(B, Hkv, T, D, dtype=torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.fa_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(got, want, FA_TOL[torch.bfloat16])
+        check(ok, f"FA bf16 kernel != plain at {(B, H, Hkv, S, T, D)} {kw}: "
+                  f"max err {err}")
+        worst["fa"]["bfloat16"] = max(worst["fa"]["bfloat16"], err)
         n += 1
     print(f"fa kernel == plain on {n} cases: worst |err| f32 "
           f"{worst['fa']['float32']:.3e} (tol 2e-5 + 2e-5*|plain|), bf16 "
@@ -566,7 +604,7 @@ def phase_model_path(dev):
             stalled += us / 1e3
             continue
         low = name.lower()
-        grp = ("fa_kernel" if "fa_kernel" in name else
+        grp = ("fa_kernel" if "fa_kernel" in name or "fa_wgmma_kernel" in name else
                "ssd_kernel" if "ssd_kernel" in name else
                "gemm" if any(g in low for g in ("gemm", "cutlass", "xmma",
                                                 "cublas", "nvjet")) else
@@ -756,6 +794,12 @@ def phase_model_timing(dev, fa, ssd):
           f"989 TFLOP/s bf16; bytes {t_bytes * 1e3:.4f} ms), library "
           f"scaled_dot_product_attention(is_causal=True) {lib:.4f} ms (|err| vs "
           f"plain {lib_err:.3e}); kernel |err| vs plain {err:.3e}", flush=True)
+    flop = 4 * B * H * D * pairs
+    print(f"timing fa bf16 wgmma/TMA kernel: {flop / (kern * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s over the {flop / 1e9:.2f} GFLOP of causal pairs, "
+          f"{rows['fa']['bound_ms'] / kern:.4f} of the bound, "
+          f"{kern / lib:.3f}x the library's time; the SIMT kernel it replaced "
+          f"read {FA_SIMT_MS} ms ({FA_SIMT_MS / kern:.1f}x this one)", flush=True)
     del q, k, v, qv, kv, vv, got, want
 
     b, T, Hs, P, N, l = PREFILL_B, PREFILL_S, 80, 64, 64, 256

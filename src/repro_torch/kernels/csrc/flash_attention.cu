@@ -7,32 +7,74 @@
 // masked scores set to NEG = -1e9, kv tiles that are entirely masked
 // skipped, the GQA kv head h / group read in place, output in q's dtype.
 // It adds `q_offset` (absolute position of q row 0 against k row 0), which
-// the model's attention takes.
+// the model's attention takes.  Any strides with a unit last axis: the
+// model passes its (B, S, H, D) tensors as (B, H, S, D) views, and nothing
+// is transposed or copied.
 //
 // What bounds it on an H100: operations.  4·D flops per (query, key) pair
 // against 2·D·bytes per row of q, k, v and o: at D = 80 and S = T = 4096
 // that is ~1000 flops per byte, far above the card's ~295 bf16 flops per
-// byte.  This first kernel does its products on the f32 pipes, not on the
-// tensor cores (a later PR moves them to wgmma), so its ceiling is the
-// 67 TFLOP/s f32 rate and, below that, shared-memory bandwidth.
+// byte, so the ceiling is the 989 TFLOP/s bf16 tensor-core rate and, next
+// to it, the exponentials of the softmax (one per pair, on the 16-wide
+// MUFU pipe of each SM).
 //
-// Design:
-//   * One block per (batch·head, 64-row q tile), 256 threads; the kv loop
-//     runs inside the block over 64-row tiles, in place of the TPU's
-//     sequential grid axis.  Tiles the causal or window mask hides from
-//     every row of the q tile are skipped, as the TPU kernel skips them.
-//   * q, k and v tiles are converted to f32 into shared memory with a
-//     padded row stride (D + 1 floats), so the 16 threads that read 16
-//     different k rows hit 16 different banks.
-//   * Each thread owns a 4 x 4 micro-tile of the 64 x 64 score tile (rows
-//     ty + 16a, keys tx + 16b): 8 shared loads per 16 FMAs.  The row max
-//     and row sum of the online softmax reduce over the 16 lanes that own
-//     a row with two-level xor shuffles; m and l stay in registers.
-//   * P goes through shared memory (rounded to v's dtype); each thread
-//     then owns 4 rows x D/16 columns of acc in registers.
-//   * Any strides with a unit last axis: the model passes its (B, S, H, D)
-//     tensors as (B, H, S, D) views, so nothing is transposed or copied.
-//   * D is a template parameter, any multiple of 16 up to 128.
+// bfloat16: `fa_wgmma_kernel`, FlashAttention-3's layout.
+//   * One block per (batch·head, 128-row q tile), 288 threads: two
+//     consumer warpgroups of 64 q rows each and one producer warp.  Blocks
+//     are issued heaviest q tile first (the q tile is the slow grid axis,
+//     reversed), so the causal triangle does not end in a tail of long
+//     blocks.
+//   * The producer warp loads Q once and then K and V tiles of 128 rows by
+//     TMA (cp.async.bulk.tensor, 4-d maps over (D, rows, heads, batch)
+//     built on the host per call, so any 16-byte-aligned strides are taken
+//     as they are) into a 3-stage ring; an mbarrier per stage and tensor
+//     signals each arrival, another per stage says both consumers are done
+//     with it.  TMA zero-fills rows past S and T; the kpos < T mask still
+//     applies, because a zero key scores 0, not NEG.
+//   * Both products run on the tensor cores as wgmma on bf16 with f32
+//     accumulators: S = Q·Kᵀ as m64n128k16 with Q and K from shared
+//     memory (D/16 k-steps, five at D = 80), O += P·V as m64nDk16 with P
+//     from registers and V read in place, row-major, through wgmma's
+//     transpose of B.
+//   * S and P never touch shared memory.  The softmax runs on the
+//     accumulator fragment (each thread holds 2 rows x 32 columns); row max
+//     and row sum reduce over the 4 lanes that share a row by shuffles; P
+//     is rounded to bf16 in registers (the reference's rounding of P to v's
+//     dtype) and is, as laid out, the A fragment of the P·V wgmma.  The
+//     softmax works in base 2 (scores times D^-0.5·log2 e, masked ones at
+//     NEG·log2 e), which gives the same p and alpha.
+//   * Shared memory layout: D = 80 is 160 bytes a row, which does not fill
+//     a 128-byte swizzle atom.  Every tile is stored as D/16 column chunks
+//     of 16 elements (32 bytes) x rows, each loaded by its own TMA box with
+//     the 32-byte swizzle.  A wgmma k-step of 16 elements is exactly one
+//     chunk, so the same layout is Q's and K's K-major operand and V's
+//     MN-major one (chunk stride LBO, 8-row stride SBO = 256 bytes).  The
+//     swizzle puts the 8 rows of a core matrix (8 x 16 bytes, 32 bytes
+//     apart) on 8 different 16-byte bank groups, so the tensor cores read
+//     without conflicts and nothing is padded: 20 KiB per 128-row tile at
+//     D = 80, 140 KiB per block with the 3-stage ring (224 KiB at D = 128).
+//     (The 128-byte swizzle, with D = 80 padded to 128 columns by TMA's
+//     zero fill, measured no faster and needs 32 KiB a tile.)
+//   * Each warpgroup runs Q·Kᵀ, its softmax and P·V of a tile in turn,
+//     waiting for each wgmma group; the two warpgroups of a block (one
+//     block per SM, 167 registers a thread at D = 80) fill each other's
+//     waits, one on the tensor cores while the other is in its softmax.
+//   * Tiles that no row of a warpgroup can see are skipped by that
+//     warpgroup (it still waits for them and releases them); masks are
+//     computed only on tiles that cut the diagonal, the window edge or T.
+//
+// float32: `fa_kernel`, on the f32 FMA pipes.  wgmma on f32 inputs would
+// be TF32, which keeps 10 mantissa bits and cannot meet the reference's
+// 2e-5 f32 tolerance; the model runs f32 only in the consistency check.
+//   * One block per (batch·head, 64-row q tile), 256 threads, looping over
+//     64-row kv tiles converted to f32 in shared memory (row stride D + 1
+//     floats, so 16 threads reading 16 k rows hit 16 banks).
+//   * Each thread owns a 4 x 4 micro-tile of the 64 x 64 score tile; row
+//     max and sum reduce over the 16 lanes of a row by xor shuffles; P goes
+//     through shared memory; each thread owns 4 rows x D/16 columns of acc.
+//
+// D is a template parameter, any multiple of 16 up to 128, in both.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -40,6 +82,9 @@
 namespace {
 
 constexpr float NEG = -1e9f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------- float32
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
@@ -48,18 +93,6 @@ constexpr int LDP = BK + 1;
 struct Strides {  // elements, for (batch, head, row) of q, k, v, o
   long long q[3], k[3], v[3], o[3];
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// v rounded to T's precision (P is cast to v's dtype before P·V)
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
 
 __device__ __forceinline__ float max16(float v) {
 #pragma unroll
@@ -73,12 +106,12 @@ __device__ __forceinline__ float sum16(float v) {
   return v;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides st, int H,
-          int group, int S, int Tk, float scale, int causal, int window,
-          int q_offset) {
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, Strides st,
+          int H, int group, int S, int Tk, float scale, int causal,
+          int window, int q_offset) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -90,14 +123,14 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / group;
-  const T* qb = q + b * st.q[0] + h * st.q[1];
-  const T* kb = k + b * st.k[0] + hk * st.k[1];
-  const T* vb = v + b * st.v[0] + hk * st.v[1];
-  T* ob = o + b * st.o[0] + h * st.o[1];
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* kb = k + b * st.k[0] + hk * st.k[1];
+  const float* vb = v + b * st.v[0] + hk * st.v[1];
+  float* ob = o + b * st.o[0] + h * st.o[1];
 
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, d = idx - r * D;
-    sQ[r * LD + d] = q0 + r < S ? to_f(qb[(q0 + r) * st.q[2] + d]) : 0.f;
+    sQ[r * LD + d] = q0 + r < S ? qb[(q0 + r) * st.q[2] + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -121,8 +154,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * D; idx += THREADS) {
       const int r = idx / D, d = idx - r * D;
       const bool ok = k0 + r < Tk;
-      sK[r * LD + d] = ok ? to_f(kb[(k0 + r) * st.k[2] + d]) : 0.f;
-      sV[r * LD + d] = ok ? to_f(vb[(k0 + r) * st.v[2] + d]) : 0.f;
+      sK[r * LD + d] = ok ? kb[(k0 + r) * st.k[2] + d] : 0.f;
+      sV[r * LD + d] = ok ? vb[(k0 + r) * st.v[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -164,7 +197,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[a][c] - m_new);
         rsum += p;
-        sP[(ty + 16 * a) * LDP + tx + 16 * c] = round_to<T>(p);
+        sP[(ty + 16 * a) * LDP + tx + 16 * c] = p;
       }
       l[a] = l[a] * alpha + sum16(rsum);
       m[a] = m_new;
@@ -193,51 +226,568 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= S) continue;
     const float inv = 1.f / fmaxf(l[a], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      ob[r * st.o[2] + tx + 16 * j] = from_f<T>(acc[a][j] * inv);
+    for (int j = 0; j < DJ; ++j) ob[r * st.o[2] + tx + 16 * j] = acc[a][j] * inv;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Strides& st, int B, int H, int Hkv, int S, int Tk,
-                   float scale, int causal, int window, int q_offset,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       const Strides& st, int B, int H, int Hkv, int S, int Tk,
+                       float scale, int causal, int window, int q_offset,
+                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * LDP);
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  fa_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st, H, H / Hkv, S, Tk,
-      scale, causal, window, q_offset);
+  fa_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, H, H / Hkv, S,
+      Tk, scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, const Strides& st, int B, int H, int Hkv,
-                       int S, int Tk, float scale, int causal, int window,
-                       int q_offset, cudaStream_t s) {
+// --------------------------------------------------------------- bfloat16
+constexpr int WBQ = 128;            // q rows per block: two warpgroups of 64
+constexpr int WBK = 128;            // kv rows per tile
+constexpr int STAGES = 3;           // K/V ring depth (224 KiB of shared memory at D = 128)
+constexpr int CONSUMERS = 256;      // two warpgroups
+constexpr int WTHREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int CHUNK = 16;           // elements per 32-byte swizzled column chunk
+constexpr float NEG2 = NEG * LOG2E; // a masked score in the base-2 domain
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-d map (d, row, head, batch) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int row, int head,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
+         "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// A tile of `rows` x D as D/16 column chunks of rows x 32 bytes: one box each.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head,
+                                         int batch, int rows) {
+#pragma unroll
+  for (int c = 0; c < D / CHUNK; ++c)
+    tma_load(dst + c * rows * 32, map, bar, c * CHUNK, row, head, batch);
+}
+
+// wgmma shared-memory descriptor, 32-byte swizzle (layout type 3).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator register
+// across the asynchronous wgmma that writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (64 x BK) += Q (64 x 16) · Kᵀ (16 x BK): m64n128k16, both from shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// O (64 x N) += P (64 x 16, bf16 registers) · V (16 x N): m64nNk16, V
+// MN-major in shared memory (transposed B).  One instance per head dim.
+template <int N> struct WgmmaPV;
+template <> struct WgmmaPV<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<48> {
+  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<80> {
+  static __device__ __forceinline__ void run(float (&d)[40], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<96> {
+  static __device__ __forceinline__ void run(float (&d)[48], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<112> {
+  static __device__ __forceinline__ void run(float (&d)[56], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaPV<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(WTHREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, long long so_b, long long so_h,
+                long long so_r, int H, int group, int S, int Tk,
+                float scale_log2, int causal, int window, int q_offset) {
+  constexpr uint32_t TILE = D * WBQ * 2;      // bytes of one 128-row tile
+  constexpr int NCH = D / CHUNK;
+  static_assert(WBQ == WBK, "one tile size for Q, K and V");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + TILE;                 // + stage * TILE
+  const uint32_t sV = sK + STAGES * TILE;
+  const uint32_t q_full = sV + STAGES * TILE;    // then k_full, v_full, empty
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+
+  const int qt = gridDim.y - 1 - blockIdx.y;     // heaviest q tile first
+  const int q0 = qt * WBQ;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / group;
+
+  // the kv tiles some row of this block can see
+  const int qlo = q0 + q_offset, qhi = q0 + WBQ - 1 + q_offset;
+  const int nk = (Tk + WBK - 1) / WBK;
+  const int kt_end = causal ? min(nk, qhi / WBK + 1) : nk;
+  const int first = qlo - window + 1;           // first key row qlo may see
+  const int kt_begin = (window > 0 && first > 0) ? first / WBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {                // ---- producer warp ----
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, TILE);
+      tma_tile<D>(sQ, &tq, q_full, q0, h, b, WBQ);
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int s = i % STAGES;
+        const uint32_t ph = (i / STAGES) & 1;
+        mbar_wait(empty(s), ph ^ 1);             // both warpgroups are done
+        mbar_expect_tx(k_full(s), TILE);
+        tma_tile<D>(sK + s * TILE, &tk, k_full(s), kt * WBK, hk, b, WBK);
+        mbar_expect_tx(v_full(s), TILE);
+        tma_tile<D>(sV + s * TILE, &tv, v_full(s), kt * WBK, hk, b, WBK);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 q rows each ----
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = t % 32, g = lane / 4, c = lane % 4;
+  const int row0 = q0 + wg * 64 + (t / 32) * 16 + g;   // this thread's rows:
+  const int qp0 = row0 + q_offset, qp1 = qp0 + 8;       // row0 and row0 + 8
+  const int wlo = q0 + wg * 64 + q_offset, whi = wlo + 63;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  float m0 = NEG2, m1 = NEG2, l0 = 0.f, l1 = 0.f;   // l: this thread's part
+
+  const uint64_t dq = smem_desc(sQ + wg * 64 * 32, 16, 256);
+  mbar_wait(q_full, 0);
+  for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = kt * WBK;
+    const bool live = (!causal || k0 <= whi) &&
+                      (window <= 0 || k0 + WBK - 1 > wlo - window);
+    mbar_wait(k_full(s), ph);
+    if (live) {
+      float sc[64];
+      const uint64_t dk = smem_desc(sK + s * TILE, 16, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NCH; ++kk)
+        wgmma_qk(sc, dq + ((kk * WBQ * 32) >> 4), dk + ((kk * WBK * 32) >> 4),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+
+      // sc[j]: row row0 + 8·((j>>1)&1), key k0 + (j>>2)·8 + 2c + (j&1)
+      const bool edge = k0 + WBK > Tk || (causal && k0 + WBK - 1 > wlo) ||
+                        (window > 0 && k0 <= whi - window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) {
+          const int kpos = k0 + (j >> 2) * 8 + 2 * c + (j & 1);
+          const int qp = (j & 2) ? qp1 : qp0;
+          bool ok = kpos < Tk;
+          if (causal) ok = ok && kpos <= qp;
+          if (window > 0) ok = ok && kpos > qp - window;
+          sc[j] = ok ? sc[j] * scale_log2 : NEG2;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) sc[j] *= scale_log2;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        if (j & 2) mx1 = fmaxf(mx1, sc[j]);
+        else mx0 = fmaxf(mx0, sc[j]);
+      }
+#pragma unroll
+      for (int d = 1; d < 4; d <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+      }
+      const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      uint32_t pf[32];   // P in bf16: the A fragments of the P·V wgmma
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 64; j += 2) {
+        const float mm = (j & 2) ? mx1 : mx0;
+        const float p0 = ex2(sc[j] - mm), p1 = ex2(sc[j + 1] - mm);
+        if (j & 2) s1 += p0 + p1;
+        else s0 += p0 + p1;
+        pf[j / 2] = pack_bf16(p0, p1);
+      }
+      l0 = l0 * a0 + s0;
+      l1 = l1 * a1 + s1;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? a1 : a0;
+
+      const uint64_t dv = smem_desc(sV + s * TILE, WBK * 32, 256);
+      mbar_wait(v_full(s), ph);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WBK / 16; ++kk)
+        WgmmaPV<D>::run(acc, &pf[4 * kk], dv + ((kk * 16 * 32) >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+    } else {
+      mbar_wait(v_full(s), ph);
+    }
+    mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = o + b * so_b + h * so_h;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * c;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * so_r + col) =
+          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (row0 + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * so_r + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled and cuGetErrorString from libcuda, through the
+// runtime's entry-point query (so the library links no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+typedef CUresult (*ErrorStringFn)(CUresult, const char**);
+
+void* cu_entry_point(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &fn, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? fn : nullptr;
+}
+
+constexpr int CU_ERR = 1000;   // fa_launch returns 1000 + a CUresult for tensor-map errors
+
+// A 4-d map (d, row, head, batch) of a bf16 tensor; strides in bytes for
+// row, head, batch; boxes of 16 x `box_rows`, 32-byte swizzle, zeros past
+// the edges.
+CUresult make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int D,
+                  int rows, int heads, int batch, long long s_row,
+                  long long s_head, long long s_batch, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_row, (cuuint64_t)s_head,
+                                 (cuuint64_t)s_batch};
+  const cuuint32_t box[4] = {(cuuint32_t)CHUNK, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const Strides& st, int B, int H, int Hkv, int S, int Tk,
+                float scale, int causal, int window, int q_offset,
+                cudaStream_t stream) {
+  static const EncodeTiledFn encode =
+      reinterpret_cast<EncodeTiledFn>(cu_entry_point("cuTensorMapEncodeTiled"));
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(encode, &tq, q, D, S, H, B, 2 * st.q[2], 2 * st.q[1],
+                        2 * st.q[0], WBQ);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &tk, k, D, Tk, Hkv, B, 2 * st.k[2], 2 * st.k[1],
+                 2 * st.k[0], WBK);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &tv, v, D, Tk, Hkv, B, 2 * st.v[2], 2 * st.v[1],
+                 2 * st.v[0], WBK);
+  if (r != CUDA_SUCCESS) return CU_ERR + (int)r;
+  const size_t smem = 1024 + (size_t)D * WBQ * 2 * (1 + 2 * STAGES) +
+                      8 * (1 + 3 * STAGES);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + WBQ - 1) / WBQ);
+  fa_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.o[0], st.o[1], st.o[2], H,
+      H / Hkv, S, Tk, scale * LOG2E, causal, window, q_offset);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF16, int D>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides& st, int B, int H, int Hkv, int S, int Tk, float scale,
+           int causal, int window, int q_offset, cudaStream_t s) {
+  if (BF16)
+    return launch_bf16<D>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal,
+                          window, q_offset, s);
+  return (int)launch_f32<D>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal,
+                            window, q_offset, s);
+}
+
+template <bool BF16>
+int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
+               const Strides& st, int B, int H, int Hkv, int S, int Tk,
+               float scale, int causal, int window, int q_offset,
+               cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 32: return launch<T, 32>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 48: return launch<T, 48>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 64: return launch<T, 64>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 80: return launch<T, 80>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 96: return launch<T, 96>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 112: return launch<T, 112>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 128: return launch<T, 128>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    default: return cudaErrorInvalidValue;
+    case 16: return launch<BF16, 16>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 32: return launch<BF16, 32>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 48: return launch<BF16, 48>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 64: return launch<BF16, 64>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 80: return launch<BF16, 80>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 96: return launch<BF16, 96>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 112: return launch<BF16, 112>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 128: return launch<BF16, 128>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  strides: 12
-// int64 element strides, (batch, head, row) of q, k, v, o in that order.
-// window <= 0 means none.  Returns the CUDA error of the launch.
+// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the wgmma/TMA
+// kernel); q, k, v and o alike.  strides: 12 int64 element strides,
+// (batch, head, row) of q, k, v, o in that order; for bfloat16 those of
+// q, k and v must be multiples of 8 elements (16 bytes) and the pointers
+// 16-byte aligned, as TMA requires (the wrapper checks).  window <= 0
+// means none.  Returns 0, a cudaError_t, or 1000 + a CUresult of the
+// tensor-map encode.
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          int dtype, int B, int H, int Hkv, int S, int Tk, int D,
                          const long long* strides, float scale, int causal,
@@ -252,16 +802,20 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
     st.o[i] = strides[9 + i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return dispatch_d<false>(D, q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+  if (dtype == 1)
+    return dispatch_d<true>(D, q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* fa_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  if (err < CU_ERR) return cudaGetErrorString(static_cast<cudaError_t>(err));
+  static const ErrorStringFn error_string =
+      reinterpret_cast<ErrorStringFn>(cu_entry_point("cuGetErrorString"));
+  const char* msg = nullptr;
+  if (!error_string ||
+      error_string(static_cast<CUresult>(err - CU_ERR), &msg) != CUDA_SUCCESS || !msg)
+    return "unknown CUresult";
+  return msg;
 }

@@ -4,10 +4,12 @@ and its plain PyTorch version.
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
 ``_fa_kernel`` behind ``flash_attention``).  :func:`flash_attention` takes
 q (B, H, S, D) and k, v (B, Hkv, T, D) with any strides whose last axis is
-unit: on CUDA tensors it launches the hand-written kernel in
-``csrc/flash_attention.cu`` and counts the launch; on CPU tensors it runs
-:func:`fa_plain`.  There is no fallback from the kernel to the plain
-version.
+unit: on CUDA tensors it launches one of the hand-written kernels in
+``csrc/flash_attention.cu`` and counts the launch (bfloat16: the wgmma
+kernel, whose K/V tiles arrive by TMA; float32: the SIMT kernel on the f32
+pipes); on CPU tensors it runs :func:`fa_plain`.  There is no fallback from
+a kernel to the plain version, nor from the bfloat16 kernel to the SIMT
+one: a bfloat16 layout that TMA cannot take (:func:`tma_problem`) raises.
 
 :func:`fa_plain` is the TPU kernel's arithmetic in eager PyTorch, with one
 q tile of all S rows: an online softmax over kv tiles, m, l and acc in f32,
@@ -23,7 +25,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention", "fa_plain", "launch_count",
+__all__ = ["flash_attention", "fa_plain", "tma_problem", "launch_count",
            "reset_launch_count", "NEG", "HEAD_DIMS"]
 
 NEG = -1e9
@@ -87,6 +89,33 @@ def fa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, H, S, D).to(q.dtype)
 
 
+def tma_problem(name: str, shape, strides, dtype: torch.dtype,
+                offset: int) -> Optional[str]:
+    """Why the bfloat16 kernel's TMA loads cannot read a (B, H, rows, D)
+    tensor of this shape, element strides, dtype and element offset into its
+    storage (whose base the allocator aligns), or None if they can.
+
+    TMA takes bfloat16 with a unit last axis, a start on a 16-byte boundary
+    and strides that are multiples of 16 bytes below 2**40 on every other
+    axis; an axis of size 1 is never stepped along, so its stride does not
+    matter.
+    """
+    if dtype != torch.bfloat16:
+        return f"{name} is {dtype}; the TMA loads take bfloat16"
+    if shape[3] > 1 and strides[3] != 1:
+        return f"{name}.stride(3) = {strides[3]}: the last axis must be unit"
+    if offset * 2 % 16:
+        return (f"{name} starts {offset} elements ({offset * 2} bytes) into "
+                f"its storage, not on a 16-byte boundary as TMA requires")
+    for axis in range(3):
+        nbytes = strides[axis] * 2
+        if shape[axis] > 1 and (nbytes % 16 or nbytes >= 2 ** 40):
+            return (f"{name}.stride({axis}) = {strides[axis]} elements = "
+                    f"{nbytes} bytes: TMA needs a multiple of 16 bytes "
+                    f"below 2**40")
+    return None
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     from ._build import load
@@ -138,12 +167,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on the last axis")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            why = tma_problem(name, t.shape, t.stride(), t.dtype,
+                              t.storage_offset())
+            if why is None and t.data_ptr() % 16:
+                why = f"{name} at {t.data_ptr():#x} is not 16-byte aligned"
+            if why is not None:
+                raise ValueError(why)
 
     out = torch.empty_like(q)            # q's layout (a (B,S,H,D) view stays one)
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # an axis of size 1 is never stepped along: give it a stride TMA takes
     strides = (ctypes.c_longlong * 12)(*[
-        s for t in (q, k, v, out) for s in t.stride()[:3]])
+        st if n > 1 else 8 for t in (q, k, v, out)
+        for st, n in zip(t.stride()[:3], t.shape[:3])])
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -153,7 +192,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             0 if window is None else int(window),
                             int(q_offset), stream)
     if err != 0:
-        raise RuntimeError(f"fa_launch failed: CUDA error {err} "
+        what = (f"CUDA error {err}" if err < 1000 else
+                f"CUresult {err - 1000} encoding a tensor map")
+        raise RuntimeError(f"fa_launch failed: {what} "
                            f"({lib.fa_error_string(err).decode()})")
     _count_launch()
     return out

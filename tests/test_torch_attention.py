@@ -6,6 +6,8 @@ through ``repro_torch``, where the flash-attention wrapper runs its plain
 PyTorch version.  Tolerances are stated beside each check.  The kernel
 itself runs in ``test_torch_gpu.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +152,56 @@ def test_flash_attention_wrapper_refuses_bad_input(bad):
         k, kw = torch.zeros((1, 2, 8, 16)), {"window": 0}
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, k, **kw)
+
+
+def _tma(name, t):
+    return fa.tma_problem(name, t.shape, t.stride(), t.dtype,
+                          t.storage_offset())
+
+
+@pytest.mark.parametrize("B,S,H,D", [(2, 4096, 32, 80), (1, 1, 4, 16),
+                                     (3, 70, 5, 128)])
+def test_tma_rule_takes_the_models_views(B, S, H, D):
+    """The bf16 kernel's TMA rule on CPU tensors: the model's (B,S,H,D)
+    tensors passed as (B,H,S,D) views, and contiguous (B,H,S,D) tensors,
+    are taken as they are."""
+    x = torch.zeros((B, S, H, D), dtype=torch.bfloat16)
+    assert _tma("q", x.transpose(1, 2)) is None
+    assert _tma("k", x.transpose(1, 2).contiguous()) is None
+    # a k/v slice of a fused projection starts on a 16-byte boundary too
+    fused = torch.zeros((B, S, 3 * H * D), dtype=torch.bfloat16)
+    k = fused[..., H * D:2 * H * D].reshape(B, S, H, D).transpose(1, 2)
+    assert _tma("k", k) is None
+
+
+@pytest.mark.parametrize("case,why", [
+    ("row_stride", r"q\.stride\(2\) = 84 elements = 168 bytes"),
+    ("head_stride", r"q\.stride\(1\) = 84 elements = 168 bytes"),
+    ("offset", "16-byte boundary"),
+    ("float32", "bfloat16"),
+    ("last_axis", r"stride\(3\)"),
+])
+def test_tma_rule_names_what_it_cannot_take(case, why):
+    """Rows or heads 168 bytes apart, a start 2 bytes into the storage, a
+    float32 tensor or a strided last axis: the rule names the stride."""
+    if case == "row_stride":
+        t = torch.zeros((1, 4, 20, 84), dtype=torch.bfloat16)[..., :80]
+    elif case == "head_stride":
+        t = torch.zeros((1, 20, 4, 84), dtype=torch.bfloat16)[..., :80] \
+            .transpose(1, 2)
+    elif case == "offset":
+        t = torch.zeros((1, 4, 20, 88), dtype=torch.bfloat16)[..., 1:81]
+    elif case == "float32":
+        t = torch.zeros((1, 4, 20, 80))
+    else:
+        t = torch.zeros((1, 4, 20, 160), dtype=torch.bfloat16)[..., ::2]
+    got = _tma("q", t)
+    assert got is not None and re.search(why, got), got
+
+
+def test_tma_rule_ignores_strides_of_size_one_axes():
+    """An axis of size 1 is never stepped along, so its stride is free."""
+    t = torch.zeros(2048, dtype=torch.bfloat16)
+    assert _tma("q", t.as_strided((1, 4, 1, 80), (3, 80, 5, 1))) is None
+    assert _tma("q", t.as_strided((1, 4, 2, 80), (3, 160, 84, 1))) \
+        is not None

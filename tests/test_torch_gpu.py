@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA Smith-Waterman kernel held
 against its plain PyTorch version on the card, exactly, and the farm search
-launching it once per task; the flash-attention and SSD kernels against
-their plain versions; the Zamba2 smoke prefill launching both.  They carry
+launching it once per task; the flash-attention kernels (bf16: wgmma with
+TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernel
+against their plain versions; the Zamba2 smoke prefill launching both.  They carry
 the ``gpu`` marker and skip where there is no card.  This file imports neither jax nor the reference package,
 so it runs on a machine that has only the port's dependencies:
 
@@ -104,14 +105,73 @@ def test_fa_kernel_takes_the_models_layout(dev):
     """(B,S,H,D) tensors passed as (B,H,S,D) views: no copy, same result."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn((2, 70, 4, 80), generator=g, device=dev)
-               for _ in range(3))
-    got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2))
-    assert got.transpose(1, 2).is_contiguous()
-    want = fa.fa_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((2, 70, 4, 80), generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        before = fa.launch_count()
+        got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2))
+        assert fa.launch_count() == before + 1
+        assert got.transpose(1, 2).is_contiguous()
+        want = fa.fa_plain(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2))
+        torch.cuda.synchronize()
+        tol = FA_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+# The bf16 (wgmma/TMA) kernel's edges: every head dim, S and T of 1, 63,
+# 65, 257 and below its 128-row kv tile, S < T with q_offset = T - S,
+# S > T, GQA and MQA, windows 1, 64 and 128, no causal mask.
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,window,q_offset,causal", [
+    *[(1, 2, 1, 129, 200, d, None, 0, True) for d in (16, 32, 48, 64, 80,
+                                                      96, 112, 128)],
+    (2, 4, 2, 1, 1, 80, None, 0, True),
+    (1, 4, 4, 63, 63, 80, None, 0, True),
+    (1, 4, 4, 65, 65, 48, None, 0, True),
+    (1, 4, 4, 257, 257, 80, None, 0, True),
+    (1, 4, 2, 63, 65, 64, None, 2, True),
+    (1, 4, 2, 65, 257, 80, None, 192, True),
+    (1, 4, 4, 257, 63, 80, None, 0, True),
+    (1, 4, 4, 300, 77, 128, None, 0, True),
+    (2, 8, 1, 200, 200, 80, None, 0, True),
+    (1, 8, 2, 300, 300, 80, 1, 0, True),
+    (1, 8, 2, 300, 300, 80, 64, 0, True),
+    (1, 4, 4, 500, 500, 128, 128, 0, True),
+    (1, 4, 1, 33, 1000, 64, 64, 967, True),
+    (1, 2, 2, 100, 300, 80, None, 0, False),
+])
+def test_fa_bf16_kernel_edges_on_card(dev, B, H, Hkv, S, T, D, window,
+                                      q_offset, causal):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S * 31 + T + D)
+    q = torch.randn((B, H, S, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, Hkv, T, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, Hkv, T, D), generator=g, device=dev).bfloat16()
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.launch_count()
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launch_count() == before + 1
+    want = fa.fa_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    tol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_fa_bf16_refuses_layouts_tma_cannot_take(dev):
+    """A bf16 view whose head stride is 84 elements (168 bytes), or that
+    starts 2 bytes into its storage, raises and launches nothing: no copy,
+    no fall back to the SIMT kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    wide = torch.zeros((1, 20, 4, 84), dtype=torch.bfloat16, device=dev)
+    ok = torch.zeros((1, 4, 20, 80), dtype=torch.bfloat16, device=dev)
+    before = fa.launch_count()
+    with pytest.raises(ValueError, match=r"stride\(1\)"):
+        fa.flash_attention(wide[..., :80].transpose(1, 2), ok, ok)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(ok, wide[..., 1:81].transpose(1, 2), ok)
+    assert fa.launch_count() == before
 
 
 def _ssd_inputs(dev, b, T, H, P, N, dtype, seed, with_h0):
