@@ -9,9 +9,10 @@ kernel launch counts set to 0 just before it and read just after:
   score one (query, subject) pair each with the hand-written CUDA kernel;
 * Zamba2-2.7B at full width (54 layers, bf16, random weights from a seed):
   ``prefill`` of 2 x 4096 tokens, which runs the flash-attention kernel in
-  its 9 shared-attention blocks and the SSD kernel in its 45 Mamba2
-  blocks, then the ``ServeEngine`` serving 8 requests through
-  ``decode_step`` (plain PyTorch, as in the reference).
+  its 9 shared-attention blocks and the SSD scan (five CUDA kernels per
+  call, counted as one launch) in its 45 Mamba2 blocks, then the
+  ``ServeEngine`` serving 8 requests through ``decode_step`` (plain
+  PyTorch, as in the reference).
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -23,11 +24,15 @@ Phases, each on lines of its own; any failed check exits non-zero:
   5. SW kernel, plain-version and bound times at the main path's shapes;
   6. FA and SSD kernels against their plain versions on many shapes (the
      bf16 FA kernel, wgmma with TMA loads, also on its edges: every head
-     dim, ragged S and T, q_offset, S > T, GQA/MQA, windows, strided views);
+     dim, ragged S and T, q_offset, S > T, GQA/MQA, windows, strided views;
+     the SSD scan on its edges: one chunk, chunks of 8 to 1024, ragged
+     row tiles, P = 16 with N = 128, P = 5 with N = 7, 64 chunks in the
+     inter-chunk pass);
   7. the Zamba2 main path: prefill (9 FA + 45 SSD launches each), the
      f32 prefill-against-decode consistency check, serving;
   8. FA and SSD kernel, plain, bound and library times at the main path's
-     shapes, and the FA kernel's TFLOP/s and share of its bound;
+     shapes, the FA kernel's TFLOP/s and share of its bound, and the SSD
+     scan's time split by its five passes (torch.profiler);
   9. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -35,6 +40,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 import contextlib
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -67,12 +73,13 @@ MAIN_ARCH = "zamba2-2.7b"     # exactly as in src/repro_torch/configs
 PREFILL_B, PREFILL_S = 2, 4096  # Zamba2's context; a multiple of chunk 256
 CONSIST_S = 512               # the f32 prefill-against-decode prompt
 # f32 prefill (kernels) against f32 decode (no kernel): max |logit diff|,
-# logits up to ~4.3.  At full width the f32 sides end ~4e-3 apart, the
-# plain versions' prefill as far as the kernels' (printed below): the
-# chunked SSD takes exp(cs_i - cs_j) of two cumulative log-decays that
-# reach -1e3 and beyond, where f32 keeps ~1e-4 of the difference, and 54
-# random layers carry it on.  A bf16 model moves the logits by ~2.5, so it
-# fails the tolerance by 50x (checked below).
+# logits up to ~4.3.  At full width the plain versions' f32 prefill ends
+# ~4e-3 from the decode (printed below): the chunked SSD takes
+# exp(cs_i - cs_j) of two cumulative log-decays that reach -1e3 and beyond,
+# where an f32 sum keeps ~1e-4 of the difference, and 54 random layers
+# carry it on.  The SSD kernels sum cs in float64, and their prefill ends
+# closer (~7e-4).  A bf16 model moves the logits by ~2.5, so it fails the
+# tolerance by 50x (checked below).
 CONSIST_TOL = 5e-2
 SERVE_REQS, SERVE_BATCH, SERVE_LEN, SERVE_NEW = 8, 4, 256, 16
 # kernel against plain on the card: FA 2e-5 f32 / 2e-2 bf16 (the
@@ -83,6 +90,11 @@ SERVE_REQS, SERVE_BATCH, SERVE_LEN, SERVE_NEW = 8, 4, 256, 16
 # bf16 neighbour).  |kernel - plain| <= tol + tol * |plain| elementwise.
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# With f32 products, an SSD chunk longer than this is held against the
+# plain version evaluated in float64 (compute_dtype=torch.float64): there
+# the f32 plain version's cumulative log-decays, which reach -1e3, drift by
+# about the tolerance themselves (tests/test_torch_ssm.py, the f64 witness).
+SSD_WITNESS_CHUNK = 256
 # The bf16 FA kernel's edges (B, H, Hkv, S, T, D, window, q_offset, causal):
 # every head dim; S and T of 1, 63, 65, 257 and below its 128-row kv tile;
 # S < T with q_offset = T - S; S > T; GQA and MQA; windows 1, 64 and 128.
@@ -106,6 +118,8 @@ FA_BF16_EDGES = [
     (1, 2, 2, 100, 300, 80, None, 0, False),
 ]
 FA_SIMT_MS = 7.8476           # the replaced SIMT bf16 kernel at the main shape (PERF.md §6)
+SSD_SERIAL_MS = 4.9933        # the replaced SSD kernel (chunks in order per (batch, head)) there
+SSD_KERNEL = re.compile(r"ssd_\w*kernel")   # the five passes' kernel names
 
 
 class CheckFailed(Exception):
@@ -480,6 +494,17 @@ def phase_model_kernels(dev, fa, ssd):
         (2, 96, 24, 64, 128, 32, True),
         (1, 48, 24, 64, 128, 16, False),
         (1, 128, 3, 16, 16, 128, True),
+        # the five-pass kernel's edges: one chunk with P = 16, N = 128, H = 3;
+        # ragged 64-row tiles (96), an odd chunk under one tile (15, scalar
+        # staging), chunks of 1024, 64 chunks in the inter-chunk pass, and
+        # P = 5, N = 7 (scalar staging of x, B, C and the state)
+        (1, 256, 3, 16, 128, 256, False),
+        (2, 192, 24, 64, 64, 96, True),
+        (1, 45, 3, 8, 16, 15, True),
+        (1, 1024, 8, 64, 64, 1024, True),
+        (2, 2048, 24, 64, 128, 1024, False),
+        (1, 4096, 8, 64, 64, 64, True),
+        (1, 140, 3, 5, 7, 70, True),
     ]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -492,18 +517,28 @@ def phase_model_kernels(dev, fa, ssd):
                 h0 = randn(b, H, P, N) if with_h0 else None
                 y, h = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                                     compute_dtype=cd)
-                y_p, h_p = ssd.ssd_plain(x, dt, A, Bm, Cm, chunk, h0=h0,
-                                         compute_dtype=cd)
+                witness = cd == torch.float32 and chunk > SSD_WITNESS_CHUNK
+                y_p, h_p = ssd.ssd_plain(
+                    x, dt, A, Bm, Cm, chunk, h0=h0,
+                    compute_dtype=torch.float64 if witness else cd)
                 torch.cuda.synchronize()
                 ey, oky = within(y, y_p, SSD_TOL[cd])
                 eh, okh = within(h, h_p, SSD_TOL[cd])
                 check(oky and okh,
-                      f"SSD kernel != plain at {(b, T, H, P, N, chunk, with_h0)}"
-                      f" x {dtype} compute {cd}: max err y {ey} h {eh}")
+                      f"SSD kernel != plain{' (f64)' if witness else ''} at "
+                      f"{(b, T, H, P, N, chunk, with_h0)} x {dtype} compute "
+                      f"{cd}: max err y {ey} h {eh}")
+                if witness:
+                    y32, _ = ssd.ssd_plain(x, dt, A, Bm, Cm, chunk, h0=h0)
+                    print(f"ssd chunk {chunk} {(b, T, H, P, N)} x {dtype}: "
+                          f"max err y against the f64 plain: kernel {ey:.3e}, "
+                          f"f32 plain {within(y32, y_p, SSD_TOL[cd])[0]:.3e}",
+                          flush=True)
                 key = "compute_" + str(cd).removeprefix("torch.")
                 worst["ssd"][key] = max(worst["ssd"].get(key, 0.0), ey, eh)
                 n += 1
-    print(f"ssd kernel == plain on {n} cases: worst |err| f32 products "
+    print(f"ssd kernel == plain on {n} cases (f64 plain for f32 products at "
+          f"chunks over {SSD_WITNESS_CHUNK}): worst |err| f32 products "
           f"{worst['ssd']['compute_float32']:.3e} (tol 1e-4 + 1e-4*|plain|), "
           f"bf16 products {worst['ssd']['compute_bfloat16']:.3e} "
           f"(tol 5e-2 + 5e-2*|plain|)", flush=True)
@@ -605,7 +640,7 @@ def phase_model_path(dev):
             continue
         low = name.lower()
         grp = ("fa_kernel" if "fa_kernel" in name or "fa_wgmma_kernel" in name else
-               "ssd_kernel" if "ssd_kernel" in name else
+               "ssd_*_kernel" if SSD_KERNEL.search(name) else
                "gemm" if any(g in low for g in ("gemm", "cutlass", "xmma",
                                                 "cublas", "nvjet")) else
                "other")
@@ -834,6 +869,31 @@ def phase_model_timing(dev, fa, ssd):
           f"{t_bytes * 1e3:.4f} ms), library: none (no PyTorch call computes "
           f"the SSD scan); kernel |err| vs plain y {ey:.3e} h {eh:.3e}",
           flush=True)
+    print(f"timing ssd five-pass kernels: {flops / (kern * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s, {rows['ssd']['bound_ms'] / kern:.4f} of the bound; the "
+          f"one-block-per-(batch, head) kernel it replaced read {SSD_SERIAL_MS} "
+          f"ms ({SSD_SERIAL_MS / kern:.2f}x this one)", flush=True)
+    # one main-shape call split by pass (torch.profiler, device time)
+    from torch.profiler import ProfilerActivity, profile
+    reps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=l)
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        m = SSD_KERNEL.search(ev.key)
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if m and us:
+            passes[m.group(0)] = passes.get(m.group(0), 0.0) + us / 1e3 / reps
+    if passes:
+        print("timing ssd by pass (torch.profiler, ms per call): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in passes.items())
+            + f"; sum {sum(passes.values()):.4f}", flush=True)
+    else:
+        print("timing ssd by pass: the profiler saw no device time (not "
+              "measured)", flush=True)
     return rows
 
 

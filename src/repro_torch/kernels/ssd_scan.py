@@ -5,14 +5,20 @@ Counterpart of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel
 ``_ssd_kernel`` behind ``ssd_scan``) and of the chunked form
 ``repro.models.ssm.ssd_chunked``, whose contract it takes: an optional
 initial state ``h0`` and a ``compute_dtype`` for the intra-chunk products.
-:func:`ssd_scan` launches the hand-written kernel in ``csrc/ssd_scan.cu``
-on CUDA tensors and counts the launch; on CPU tensors it runs
-:func:`ssd_plain`.  There is no fallback from the kernel to the plain
-version.
+:func:`ssd_scan` launches the hand-written kernels in ``csrc/ssd_scan.cu``
+on CUDA tensors (five passes of the chunk-parallel decomposition, on the
+current stream: cumsum, C·Bᵀ, chunk states, the inter-chunk pass, y) and
+counts one launch per call; on CPU tensors it runs :func:`ssd_plain`.
+There is no fallback from the kernels to the plain version.
 
 :func:`ssd_plain` is ``ssd_chunked`` in eager PyTorch: every input cast to
 f32, a Python loop over chunks carrying the (b, H, P, N) f32 state, the
-decay matrix built whole per chunk.
+decay matrix built whole per chunk.  With ``compute_dtype=torch.float64``
+it evaluates the same steps wholly in float64: the witness against which
+f32 forms are judged where the f32 cumulative log-decays drift (at chunk
+1024 with steep decays they reach -1e3, where each f32 step rounds by
+~3e-5).  The kernels sum cs in float64 and hold that witness; the f32
+form here, the reference's, does not (tests/test_torch_ssm.py).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024      # the kernel's limits
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.float32, torch.bfloat16)
 
-LAUNCHES = 0         # kernel launches since the last reset
+LAUNCHES = 0         # ssd_scan calls on CUDA since the last reset (5 kernels each)
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -64,19 +70,21 @@ def ssd_plain(x, dt, A, B, C, chunk: int, h0=None,
               compute_dtype: torch.dtype = torch.float32
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b,t,h,p), dt (b,t,h), A (h,), B/C (b,t,n); t % min(chunk, t) == 0.
-    Returns y (b,t,h,p) f32 and the final state (b,h,p,n) f32."""
+    Returns y (b,t,h,p) and the final state (b,h,p,n), f32; float64 when
+    ``compute_dtype`` is float64, which evaluates every step in float64."""
     b, t, h, p = x.shape
     n = B.shape[-1]
     l = min(chunk, t)
     nc = t // l
-    f32, cd = torch.float32, compute_dtype
-    xr = x.reshape(b, nc, l, h, p).float()
-    dtr = dt.reshape(b, nc, l, h).float()
-    Br = B.reshape(b, nc, l, n).float()
-    Cr = C.reshape(b, nc, l, n).float()
-    A = A.float()
-    h_prev = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
-              if h0 is None else h0.float())
+    cd = compute_dtype
+    wd = torch.float64 if cd == torch.float64 else torch.float32   # working dtype
+    xr = x.reshape(b, nc, l, h, p).to(wd)
+    dtr = dt.reshape(b, nc, l, h).to(wd)
+    Br = B.reshape(b, nc, l, n).to(wd)
+    Cr = C.reshape(b, nc, l, n).to(wd)
+    A = A.to(wd)
+    h_prev = (torch.zeros((b, h, p, n), dtype=wd, device=x.device)
+              if h0 is None else h0.to(wd))
     ys = []
     for c in range(nc):
         xc, dtc, Bc, Cc = xr[:, c], dtr[:, c], Br[:, c], Cr[:, c]
@@ -84,9 +92,9 @@ def ssd_plain(x, dt, A, B, C, chunk: int, h0=None,
         dA_cum = torch.cumsum(dA, dim=1)                        # (b,l,h)
         L = torch.exp(segsum(dA))                               # (b,h,l,l)
         scores = torch.einsum("bln,bsn->bls", Cc.to(cd), Bc.to(cd))
-        gated = (scores.float()[:, None] * L).to(cd)
+        gated = (scores.to(wd)[:, None] * L).to(cd)
         xdt = (xc * dtc[..., None]).to(cd)                      # (b,l,h,p)
-        y_diag = torch.einsum("bhls,bshp->blhp", gated.float(), xdt.float())
+        y_diag = torch.einsum("bhls,bshp->blhp", gated.to(wd), xdt.to(wd))
         state_decay = torch.exp(dA_cum)                         # (b,l,h)
         y_off = torch.einsum("bln,bhpn,blh->blhp", Cc, h_prev, state_decay)
         decay_to_end = torch.exp(dA_cum[:, -1:, :] - dA_cum)    # (b,l,h)
@@ -102,7 +110,7 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
     lib = load("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.ssd_launch.argtypes = [p] * 11 + [i] * 8 + [p]
     lib.ssd_launch.restype = i
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
@@ -120,7 +128,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     The chunk is ``min(chunk, T)`` and must divide T.  Returns y (b,T,H,P)
     f32 and the final state (b,H,P,N) f32.  On CUDA: x, B and C share one
     dtype (float32 or bfloat16), dt, A and h0 are float32, all contiguous;
-    the kernel runs on the current stream and does not synchronise.
+    the five kernels run on the current stream and do not synchronise.
+    Their scratch (cs in float64, CBᵀ and the chunk states (b,T/l,H,N,P)
+    in f32) comes from ``torch.empty`` here.
     """
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 3:
         raise ValueError(f"x (b,T,H,P), dt (b,T,H), A (H,), B/C (b,T,N) "
@@ -159,15 +169,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, dt, A, B, C and h0 must be contiguous")
 
-    y = torch.empty((b, T, H, P), dtype=torch.float32, device=x.device)
-    hout = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    nc = T // l
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((b, T, H, P), **f32)
+    hout = torch.empty((b, H, P, N), **f32)
+    cs = torch.empty((b, H, nc, l), dtype=torch.float64,
+                     device=x.device)               # pass 1: cumsum(dt·A)
+    cbt = torch.empty((b, nc, l, l), **f32)         # pass 2: (C·Bᵀ)ᵀ per chunk
+    st = torch.empty((b, nc, H, N, P), **f32)       # passes 3-4: chunk states
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                              B.data_ptr(), C.data_ptr(),
                              None if h0 is None else h0.data_ptr(),
-                             y.data_ptr(), hout.data_ptr(), _DTYPES[x.dtype],
+                             y.data_ptr(), hout.data_ptr(), cs.data_ptr(),
+                             cbt.data_ptr(), st.data_ptr(), _DTYPES[x.dtype],
                              int(compute_dtype == torch.bfloat16), b, T, H, P,
                              N, l, stream)
     if err != 0:

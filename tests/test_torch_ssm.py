@@ -100,6 +100,134 @@ def test_ssd_chunked_matches_jax(compute, with_h0):
         _close(h_t, h_j, 1e-5)   # the state never goes through bf16
 
 
+TILE = 64   # the CUDA kernel's row and column tile
+
+
+def _five_pass(x, dt, A, B, C, l, h0=None, cd=torch.float32):
+    """The five passes of ``csrc/ssd_scan.cu`` in eager torch, one step
+    each, with the kernel's scratch layouts and rounding points: the
+    specification the CUDA passes follow.  Scratch starts as NaN, so a value
+    read that no pass wrote shows up in the result."""
+    b, T, H, P = x.shape
+    N = B.shape[-1]
+    nc, nt = T // l, -(-l // TILE)
+    nan = float("nan")
+
+    def rnd(t):
+        return t.to(cd).float()
+
+    xr = x.float().reshape(b, nc, l, H, P)
+    dtr = dt.float().reshape(b, nc, l, H)
+    Br, Cr = B.float().reshape(b, nc, l, N), C.float().reshape(b, nc, l, N)
+    rows = [slice(t * TILE, min(l, (t + 1) * TILE)) for t in range(nt)]
+    # pass 1: cs (b, H, nc, l) of the f32 products dt·A, summed in f64; a
+    # difference cs_i - cs_j is taken in f64, then rounded to f32 for exp
+    cs = torch.cumsum((dtr * A.float()).double(), dim=2).permute(0, 3, 1, 2)
+
+    def diff(i, j):                                              # index tuples
+        return (cs[i] - cs[j]).float()
+    # pass 2: C·Bᵀ once per (b, chunk), stored transposed (b, nc, j, i);
+    # only tiles with j-tile <= i-tile are written
+    cbt = torch.full((b, nc, l, l), nan)
+    for ti, i in enumerate(rows):
+        for j in rows[:ti + 1]:
+            cbt[:, :, j, i] = rnd(torch.einsum("bcjn,bcin->bcji", rnd(Br[:, :, j]),
+                                               rnd(Cr[:, :, i])))
+    # pass 3: each chunk's own state (b, nc, H, N, P), unrounded
+    w = torch.exp(diff((..., slice(l - 1, l)), (...,))) * dtr.permute(0, 3, 1, 2)
+    st = torch.einsum("bcjn,bhcj,bcjhp->bchnp", Br, w, xr)
+    # pass 4: in place, the state entering each chunk; the last carry is h
+    carried = (torch.zeros((b, H, N, P)) if h0 is None
+               else h0.float().transpose(-1, -2))
+    for c in range(nc):
+        own = st[:, c].clone()
+        st[:, c] = carried
+        carried = carried * torch.exp(cs[:, :, c, -1].float())[..., None, None] + own
+    # pass 5: y per 64-row tile of i, reading CBᵀ tiles j <= i only
+    y = torch.full((b, nc, l, H, P), nan)
+    xdt = rnd(xr * dtr[..., None])                               # (b, nc, l, H, P)
+    pos = torch.arange(l)
+    for i in rows:
+        jend = i.stop
+        off = torch.einsum("bcin,bchnp->bcihp", Cr[:, :, i], st) * \
+            torch.exp(cs[..., i].float()).permute(0, 2, 3, 1)[..., None]
+        seg = diff((..., None, i), (..., slice(None, jend), None))     # (b,H,nc,j,i)
+        causal = pos[:jend, None] <= pos[None, i]
+        g = torch.where(causal, rnd(cbt[:, None, :, :jend, i] * torch.exp(seg)), 0.0)
+        y[:, :, i] = off + torch.einsum("bhcji,bcjhp->bcihp", g, xdt[:, :, :jend])
+    return y.reshape(b, T, H, P), carried.transpose(-1, -2)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,T,H,P,N,chunk", [
+    (1, 32, 2, 8, 16, 8),      # chunks of 8, under one tile
+    (2, 96, 3, 8, 16, 96),     # one chunk (nc = 1) in two ragged row tiles
+    (1, 192, 2, 16, 32, 96),   # chunks of 96, not a multiple of 64
+])
+def test_ssd_five_pass_decomposition_matches_jax(compute, with_h0, b, T, H, P,
+                                                 N, chunk):
+    """The CUDA kernel's five-pass decomposition, written out in eager torch
+    (``_five_pass``), against the reference's ``ssd_chunked`` (both compute
+    dtypes, with and without h0), the reference's Pallas kernel in interpret
+    mode (f32 products, no h0: its contract) and the port's ``ssd_plain``,
+    on the same numpy inputs.  1e-4 with f32 products (tests/test_kernels.py:146;
+    sums in another order); 5e-2 with bf16 products, the reference's bf16
+    tolerance (a sum in another order can round an operand to its bf16
+    neighbour).  The state never goes through bf16: 1e-4 in both."""
+    x, dt, A, B, C, h0 = _inputs(T + N, b, T, H, P, N, with_h0)
+    tcd, jcd = getattr(torch, compute), getattr(jnp, compute)
+    tol = 1e-4 if compute == "float32" else 5e-2
+    targs = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h = _five_pass(*targs, chunk, h0=th0, cd=tcd)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    y_j, h_j = jssm.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                                chunk=chunk, compute_dtype=jcd,
+                                h0=None if h0 is None else jnp.asarray(h0))
+    _close(y, y_j, tol)
+    _close(h, h_j, 1e-4)
+    y_p, h_p = ssd.ssd_plain(*targs, chunk, h0=th0, compute_dtype=tcd)
+    _close(y, y_p.numpy(), tol)
+    _close(h, h_p.numpy(), 1e-4)
+    if compute == "float32" and h0 is None:
+        y_k, h_k = jops.ssd_scan_op(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                                    chunk=chunk)
+        _close(y, y_k, 1e-4)
+        _close(h, h_k, 1e-4)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_f32_forms_against_f64_witness_at_chunk_1024(with_h0):
+    """Chunk 1024 with steep decays (A = -13.5, so cs reaches about -1e3):
+    ``ssd_plain`` with ``compute_dtype=torch.float64`` evaluates every step
+    in float64 and is the witness.  The kernels' decomposition, which sums
+    cs in float64 and takes each difference there, holds it within 1e-4.
+    The reference's f32 form (the JAX ``ssd_chunked``, and ``ssd_plain`` in
+    f32, which copies it) misses it: each f32 step of a sum near -1e3 rounds
+    by ~3e-5, and exp(cs_i - cs_j) carries that.  So on the card, chunks
+    longer than 256 with f32 products are held against the witness."""
+    b, T, H, P, N, l = 1, 2048, 4, 64, 128, 1024
+    x, dt, _, B, C, h0 = _inputs(3, b, T, H, P, N, with_h0)
+    A = np.full(H, -13.5, np.float32)
+    targs = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y_w, h_w = ssd.ssd_plain(*targs, l, h0=th0, compute_dtype=torch.float64)
+    assert y_w.dtype == h_w.dtype == torch.float64
+    assert float(torch.cumsum(targs[1][0, :l, 0].double() * -13.5, 0)[-1]) < -900
+
+    def err(got, want):     # the largest |got - want| / (1 + |want|)
+        got = torch.from_numpy(np.array(got, np.float64))
+        return float(((got - want).abs() / (1 + want.abs())).max())
+
+    y, h = _five_pass(*targs, l, h0=th0)
+    assert err(y, y_w) <= 1e-4 and err(h, h_w) <= 1e-4
+    y_p, h_p = ssd.ssd_plain(*targs, l, h0=th0)
+    y_j, h_j = jssm.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                                chunk=l, h0=None if h0 is None else jnp.asarray(h0))
+    assert err(y_p, y_w) > 1e-4 and err(y_j, y_w) > 1e-4
+
+
 def test_ssd_reference_matches_jax():
     """The sequential recurrence, with h0: 1e-5 (the same f32 recurrence)."""
     x, dt, A, B, C, h0 = _inputs(3, 2, 24, 3, 8, 16, with_h0=True)
