@@ -5,8 +5,11 @@ Two paths, each through the entry points a user calls, each with the
 kernel launch counts set to 0 just before it and read just after:
 
 * the paper's application (Sec. 4.2): Smith-Waterman protein database
-  search, subjects streamed through an order-preserving farm whose workers
-  score one (query, subject) pair each with the hand-written CUDA kernel;
+  search through an order-preserving farm, two ways: workers that score
+  one (query, subject) pair per task (the paper's farm), and workers that
+  score a length-sorted chunk of thousands of subjects per task, one
+  launch of the hand-written CUDA kernel per chunk, over a database of a
+  Swiss-Prot release's size;
 * Zamba2-2.7B at full width (54 layers, bf16, random weights from a seed):
   ``prefill`` of 2 x 4096 tokens, which runs the flash-attention kernel in
   its 9 shared-attention blocks and the SSD scan (five CUDA kernels per
@@ -20,8 +23,12 @@ Phases, each on lines of its own; any failed check exits non-zero:
      nvcc each, all started together;
   3. SW kernel == plain PyTorch version on the card, exactly, on many shapes;
   4. the SW main path: a 4096-subject database through ``TaskFarm`` and
-     through ``Pipeline(Farm, Stage)``, launch counts, order, scores;
-  5. SW kernel, plain-version and bound times at the main path's shapes;
+     through ``Pipeline(Farm, Stage)``, one subject per task; then the
+     chunked search, which must reproduce those scores, over 2^19 subjects
+     in chunks of 4096 (and 1024, 16384); launch counts of each path,
+     order, scores, GCUPS and the card's busy share;
+  5. SW kernel, plain-version and bound times at both paths' shapes (one
+     subject; a chunk of 4096 subjects);
   6. FA and SSD kernels against their plain versions on many shapes (the
      bf16 FA kernel, wgmma with TMA loads, also on its edges: every head
      dim, ragged S and T, q_offset, S > T, GQA/MQA, windows, strided views;
@@ -53,12 +60,18 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TIME_LIMIT_S = 1100           # the whole run, build included
-DB_SIZE = 4096                # subjects; a cut of Swiss-Prot's hundreds of thousands
+DB_SIZE = 4096                # subjects of the one-subject farm's database
+BIG_DB_SIZE = 1 << 19         # subjects of the chunked search: a Swiss-Prot release's scale
+BIG_DB_SEED = 19              # its own seed
+CHUNK = 4096                  # subjects per launch in the chunked search
+CHUNK_SWEEP = [1024, 16384]   # more chunk sizes at q=1000 in the 10-2k regime
+SMALL_CHUNK = 512             # chunked search of the 4096-subject database
 MEAN_LEN = 352                # Swiss-Prot 57.5 mean sequence length
 QUERY_LENS = [144, 497, 1000]  # P02232, P10635, P27895
 REGIMES = [(10.0, "10-2k"), (5.0, "5-2k")]
 GAP_EXTEND = 2.0
 SAMPLE = 256                  # subjects checked against the plain version
+TIMING_CHUNK = 4096           # subjects per launch in the chunk-shape timing rows
 OPS_PER_CELL = 15             # f32 ops per (query lane, subject char), from the .cu
 PEAK_F32 = 67e12              # H100 SXM f32 outside the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s
@@ -148,14 +161,36 @@ def make_db(rng, n):
     return [rng.integers(0, 20, int(n_)).astype(np.int32) for n_ in lens]
 
 
-def pad_batch(subjects, A, device):
-    """(B, Dp) int32 padded with A, and (B,) int32 lengths, on ``device``."""
-    dp = max(int(s.shape[0]) for s in subjects)
-    out = torch.full((len(subjects), dp), A, dtype=torch.int32)
-    for i, s in enumerate(subjects):
-        out[i, :s.shape[0]] = torch.as_tensor(s)
-    lens = torch.tensor([int(s.shape[0]) for s in subjects], dtype=torch.int32)
-    return out.to(device), lens.to(device)
+def make_big_db(n, seed):
+    """``make_db``'s statistics at ``n`` subjects, drawn in bulk: (residues
+    as one int32 array, lengths, start offsets)."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(rng.gamma(2.0, MEAN_LEN / 2.0, n).astype(np.int64), 2, 2000)
+    flat = rng.integers(0, 20, int(lens.sum()), dtype=np.int32)
+    return flat, lens, np.concatenate([[0], np.cumsum(lens)[:-1]])
+
+
+def pack_chunks(sw, subject_of, order, chunk, A, dev):
+    """Subjects in ``order`` (longest first) packed into chunks of
+    ``chunk``, each padded to its own longest subject, on the card."""
+    return [sw.pack_subjects([subject_of(i) for i in order[c:c + chunk]], A, dev)
+            for c in range(0, len(order), chunk)]
+
+
+def chunked_search(core, sw, prof, q_len, go, chunks, order_dev, n):
+    """The chunked search through the order-preserving farm: one
+    ``sw_batch`` launch per chunk, scores scattered back to database order
+    and brought to the host.  Returns (scores, wall seconds)."""
+    farm = core.TaskFarm(2, preserve_order=True)
+    farm.add_stream(chunks)
+    farm.add_worker(core.FnNode(lambda ch: sw.sw_batch(
+        prof, ch[0], ch[1], gap_open=go, gap_extend=GAP_EXTEND, q_len=q_len)))
+    t0 = time.perf_counter()
+    flat = torch.cat(farm.run_and_wait())
+    scores = torch.empty(n, dtype=torch.float32, device=flat.device)
+    scores[order_dev] = flat
+    scores = scores.cpu()
+    return scores, time.perf_counter() - t0
 
 
 def cuda_ms(fn, iters, warmup):
@@ -186,7 +221,7 @@ def phase_exact(dev, sw, ops, ref):
         hole = rng.random(700) < 0.2
         gappy[hole] = rng.integers(A, A + 9, int(hole.sum()))  # chars >= A
         subjects += [gappy, np.full(40, A, np.int32)]          # + all padding
-        subj, lens = pad_batch(subjects, A, dev)
+        subj, lens = sw.pack_subjects(subjects, A, dev)
         for go, ge in [(10.0, 2.0), (5.0, 2.0), (10.3, 2.1)]:
             got = sw.sw_batch(prof, subj, lens, gap_open=go, gap_extend=ge,
                               q_len=q_len)
@@ -227,9 +262,10 @@ def phase_main_path(dev, sw, ops, core):
     flat = torch.from_numpy(np.concatenate(db)).to(dev)      # one upload
     db_dev = list(flat.split(lens))
     torch.cuda.synchronize()
-    print(f"main path: {DB_SIZE} subjects, {db_cells} residues (a cut of the "
-          f"full Swiss-Prot 57.5 release, which holds hundreds of thousands "
-          f"of sequences, to keep the smoke short)", flush=True)
+    print(f"main path, one subject per task: {DB_SIZE} subjects, {db_cells} "
+          f"residues (one task costs ~1 ms of host work, so this path keeps "
+          f"a cut of the database; the chunked search below runs "
+          f"{BIG_DB_SIZE})", flush=True)
     queries = {q: torch.as_tensor(rng.integers(0, 20, q).astype(np.int32),
                                   device=dev) for q in QUERY_LENS}
     runs = {}
@@ -268,7 +304,7 @@ def phase_main_path(dev, sw, ops, core):
     total_launches = sw.launch_count()            # --- end of window ---
 
     A = ops.BLOSUM50.shape[0]
-    subj_all, lens_all = pad_batch(db, A, dev)
+    subj_all, lens_all = sw.pack_subjects(db, A, dev)
     pick = np.sort(rng.choice(DB_SIZE, SAMPLE, replace=False))
     for (qlen, tag), r in runs.items():
         go = dict((t, g) for g, t in REGIMES)[tag]
@@ -347,40 +383,160 @@ def phase_main_path(dev, sw, ops, core):
               f"{wall / DB_SIZE * 1e6:.1f} us/task; without float(): host "
               f"enqueue {enq / DB_SIZE * 1e6:.1f} us/task, drained "
               f"{drained:.4f}s", flush=True)
-    return total_launches, runs, db_cells
+    return total_launches, runs, db, queries
+
+
+def phase_chunked(dev, sw, ops, core, runs, db, queries):
+    """The chunked search: the database sorted by length, longest first,
+    cut into chunks of subjects, one ``sw_batch`` launch per chunk through
+    ``TaskFarm(2, preserve_order=True)``, scores back in database order.
+    First on the one-subject farm's database (which it must reproduce),
+    then on a database of ``BIG_DB_SIZE`` subjects."""
+    t_phase = time.perf_counter()
+    A = ops.BLOSUM50.shape[0]
+    gaps = dict((t, g) for g, t in REGIMES)
+    small_order = sorted(range(len(db)), key=lambda i: -len(db[i]))
+    small = pack_chunks(sw, lambda i: db[i], small_order, SMALL_CHUNK, A, dev)
+    small_dev = torch.as_tensor(small_order, device=dev)
+    flat, lens, offs = make_big_db(BIG_DB_SIZE, BIG_DB_SEED)
+    cells = int(lens.sum())
+    order = np.argsort(-lens, kind="stable")
+    big = {c: pack_chunks(sw, lambda i: flat[offs[i]:offs[i] + lens[i]], order,
+                          c, A, dev) for c in [CHUNK] + CHUNK_SWEEP}
+    order_dev = torch.as_tensor(order, device=dev)
+    profs = {q: ops.build_profile(qt, ops.BLOSUM50.to(dev))
+             for q, qt in queries.items()}
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t_phase
+    print(f"chunked search: {BIG_DB_SIZE} subjects, {cells} residues "
+          f"(seed {BIG_DB_SEED}, Swiss-Prot 57.5 statistics), sorted longest "
+          f"first, chunks of {CHUNK} (and {CHUNK_SWEEP} at q={max(QUERY_LENS)} "
+          f"{REGIMES[0][1]}), each padded to its own longest subject "
+          f"({sum(c[0].numel() for c in big[CHUNK]) * 4 / 1e9:.3f} GB at "
+          f"{CHUNK}); set-up {setup:.1f} s", flush=True)
+    grid = [(q, tag, CHUNK) for q in QUERY_LENS for _, tag in REGIMES]
+    grid += [(max(QUERY_LENS), REGIMES[0][1], c) for c in CHUNK_SWEEP]
+    results = {}
+    reset_counts()                                # --- counted window ---
+    for qlen in QUERY_LENS:
+        for go, tag in REGIMES:
+            prof, q_len = profs[qlen]
+            got, _ = chunked_search(core, sw, prof, q_len, go, small,
+                                    small_dev, len(db))
+            check(got.tolist() == runs[(qlen, tag)]["scores"],
+                  f"q={qlen} {tag}: the chunked search (chunks of "
+                  f"{SMALL_CHUNK}) differs from the one-subject farm")
+    for qlen, tag, c in grid:
+        prof, q_len = profs[qlen]
+        before = sw.launch_count()
+        scores, wall = chunked_search(core, sw, prof, q_len, gaps[tag], big[c],
+                                      order_dev, BIG_DB_SIZE)
+        results[(qlen, tag, c)] = dict(scores=scores, wall=wall,
+                                       launches=sw.launch_count() - before)
+    counts = read_counts()                        # --- end of window ---
+    n_small = len(runs) * len(small)
+    expected = n_small + sum(len(big[c]) for _, _, c in grid)
+    check(counts == {"sw": expected, "fa": 0, "ssd": 0},
+          f"chunked path launched {counts}, expected sw {expected}")
+    print(f"chunked search of the {len(db)}-subject database in chunks of "
+          f"{SMALL_CHUNK}: equal to the one-subject farm's scores in all "
+          f"{len(runs)} runs ({n_small} launches)", flush=True)
+
+    rng = np.random.default_rng(BIG_DB_SEED + 1)
+    n_chunks = len(big[CHUNK])
+    ends = [0, CHUNK - 1, CHUNK, 2 * CHUNK - 1, BIG_DB_SIZE - CHUNK,
+            BIG_DB_SIZE - 1]                      # first and last of 3 chunks
+    rest = np.setdiff1d(np.arange(BIG_DB_SIZE), ends)
+    pick = order[np.sort(np.concatenate(
+        [ends, rng.choice(rest, SAMPLE - len(ends), replace=False)]))]
+    sample, sample_lens = sw.pack_subjects(
+        [flat[offs[i]:offs[i] + lens[i]] for i in pick], A, dev)
+    for (qlen, tag, c), r in results.items():
+        scores = r["scores"]
+        check(r["launches"] == len(big[c]),
+              f"q={qlen} {tag} C={c}: {r['launches']} launches for "
+              f"{len(big[c])} chunks")
+        check(bool(torch.isfinite(scores).all()) and float(scores.min()) >= 0,
+              f"q={qlen} {tag} C={c}: scores not finite or negative")
+        if c == CHUNK:
+            prof, q_len = profs[qlen]
+            live = torch.arange(sample.shape[1], device=dev) < sample_lens[:, None]
+            want = sw.sw_plain(prof, torch.where(live, sample, A), gaps[tag],
+                               GAP_EXTEND, q_len)
+            check(want.cpu().tolist() == scores[torch.as_tensor(pick)].tolist(),
+                  f"q={qlen} {tag}: chunked scores differ from sw_plain on "
+                  f"the {len(pick)}-subject sample")
+        else:
+            check(torch.equal(scores, results[(qlen, tag, CHUNK)]["scores"]),
+                  f"q={qlen} {tag}: chunks of {c} and {CHUNK} differ")
+        # the chunks' launches back to back from one thread, over the wall
+        prof, q_len = profs[qlen]
+        busy_ms = cuda_ms(lambda: [sw.sw_batch(
+            prof, s, n, gap_open=gaps[tag], gap_extend=GAP_EXTEND, q_len=q_len)
+            for s, n in big[c]], iters=1, warmup=0)
+        r.update(busy_ms=busy_ms, gcups=gcups(qlen, cells, r["wall"]))
+        print(f"chunked q={qlen} {tag} C={c}: GCUPS={r['gcups']:.3f} "
+              f"wall={r['wall']:.4f}s chunks={len(big[c])} "
+              f"launches={r['launches']} ms/chunk={busy_ms / len(big[c]):.4f} "
+              f"busy share={busy_ms / 1e3 / r['wall']:.4f} (kernels "
+              f"{busy_ms / 1e3:.4f} s back to back) best={float(scores.max()):.0f}",
+              flush=True)
+    for qlen in QUERY_LENS:
+        one = runs[(qlen, REGIMES[0][1])]
+        print(f"one-subject farm vs chunked q={qlen} {REGIMES[0][1]}: GCUPS "
+              f"{gcups(qlen, sum(len(s) for s in db), one['wall']):.3f} "
+              f"({DB_SIZE} subjects, {DB_SIZE} launches) vs "
+              f"{results[(qlen, REGIMES[0][1], CHUNK)]['gcups']:.3f} "
+              f"({BIG_DB_SIZE} subjects, {n_chunks} launches)", flush=True)
+    print(f"chunked path: {expected} kernel launches, {len(pick)}-subject "
+          f"sample equal to sw_plain, every score finite and >= 0; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del big, small, sample
+    torch.cuda.empty_cache()
+    return expected
 
 
 def phase_timing(dev, sw, ops):
     """Per-launch kernel time at the main path's shapes, the plain
-    version's, and the bound."""
+    version's, and the bound: one subject per launch (the one-subject
+    farm's shape, D=352 padded to the 512 tile) and a chunk of
+    ``TIMING_CHUNK`` subjects of D=352 per launch (the chunked search's)."""
     rng = np.random.default_rng(5)
     A = ops.BLOSUM50.shape[0]
     rows = []
-    for qlen in (1000, 144):
-        query = torch.as_tensor(rng.integers(0, 20, qlen).astype(np.int32),
-                                device=dev)
-        prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
-        dlen, dp = MEAN_LEN, 512          # padded to the 512 tile as the path does
-        subj = torch.full((1, dp), A, dtype=torch.int32, device=dev)
-        subj[0, :dlen] = torch.as_tensor(rng.integers(0, 20, dlen)
-                                         .astype(np.int32), device=dev)
-        kern = cuda_ms(lambda: sw.sw_batch(
-            prof, subj, gap_open=10.0, gap_extend=GAP_EXTEND, q_len=q_len),
-            iters=200, warmup=20)
-        plain = cuda_ms(lambda: sw.sw_plain(
-            prof, subj, 10.0, GAP_EXTEND, q_len), iters=3, warmup=1)
-        cells = q_len * dlen
-        t_ops = cells * OPS_PER_CELL / PEAK_F32
-        t_bytes = (prof.numel() * 4 + subj.numel() * 4 + 4) / PEAK_BYTES
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        rows.append(dict(q=qlen, d=dlen, ms=kern, plain_ms=plain,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         gcups=cells / (kern * 1e-3) / 1e9))
-        print(f"timing q={qlen} d={dlen} (Dp={dp}): kernel {kern:.6f} ms/launch, "
-              f"plain {plain:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
-              f"kernel GCUPS {cells / (kern * 1e-3) / 1e9:.6f}, "
-              f"library: none (no PyTorch call computes SW)", flush=True)
+    for b, dp in ((1, 512), (TIMING_CHUNK, MEAN_LEN)):
+        for qlen in (1000, 144):
+            query = torch.as_tensor(rng.integers(0, 20, qlen).astype(np.int32),
+                                    device=dev)
+            prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
+            dlen = MEAN_LEN
+            subj = torch.full((b, dp), A, dtype=torch.int32, device=dev)
+            subj[:, :dlen] = torch.as_tensor(rng.integers(0, 20, (b, dlen))
+                                             .astype(np.int32), device=dev)
+            lens = torch.full((b,), dlen, dtype=torch.int32, device=dev)
+            kern = cuda_ms(lambda: sw.sw_batch(
+                prof, subj, lens, gap_open=10.0, gap_extend=GAP_EXTEND,
+                q_len=q_len), iters=200 if b == 1 else 20,
+                warmup=20 if b == 1 else 3)
+            plain = cuda_ms(lambda: sw.sw_plain(
+                prof, subj, 10.0, GAP_EXTEND, q_len),
+                iters=3 if b == 1 else 2, warmup=1)
+            cells = q_len * dlen * b
+            t_ops = cells * OPS_PER_CELL / PEAK_F32
+            t_bytes = (prof.numel() * 4 + subj.numel() * 4 + lens.numel() * 4
+                       + b * 4) / PEAK_BYTES
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            rate = cells / (kern * 1e-3) / 1e9
+            rows.append(dict(q=qlen, d=dlen, b=b, dp=dp, ms=kern,
+                             plain_ms=plain, bound_ms=bound_ms,
+                             bound_by=bound_by, share=bound_ms / kern,
+                             gcups=rate))
+            print(f"timing q={qlen} B={b} d={dlen} (Dp={dp}): kernel "
+                  f"{kern:.6f} ms/launch, plain {plain:.3f} ms, bound "
+                  f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / kern:.4f} of "
+                  f"the bound, kernel GCUPS {rate:.3f}, library: none (no "
+                  f"PyTorch call computes SW)", flush=True)
     return rows
 
 
@@ -410,6 +566,19 @@ def within(got, want, tol):
     return float(diff.max()), ok
 
 
+def kernel_name(mangled):
+    """``sw_warp_kernel<32>`` from ptxas's mangled entry name: the first
+    length-prefixed identifier ending in ``kernel``, with its integer
+    template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("kernel") and name.isidentifier():
+            rest = mangled[m.end() + len(name):].split("EEv")[0]
+            args = re.findall(r"Li(\d+)E", rest)
+            return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     _build.load_all()
@@ -418,7 +587,10 @@ def phase_build(_build):
         secs, log = _build.build_info(name)
         print(f"build {name}.cu: {secs:.1f} s nvcc", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "arning" in line:
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                print(f"  ptxas: {kernel_name(entry.group(1))}", flush=True)
+            elif "registers" in line or "spill" in line or "arning" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     print(f"build: {len(_build.SOURCES)} sources in {wall:.1f} s wall "
           f"(one nvcc each, started together)", flush=True)
@@ -925,22 +1097,30 @@ def main():
     phase_build(_build)
 
     cases, worst = phase_exact(dev, sw, ops, ref)
-    launches, runs, _ = phase_main_path(dev, sw, ops, core)
+    t0 = time.perf_counter()
+    launches, runs, db, queries = phase_main_path(dev, sw, ops, core)
+    print(f"one-subject farm phase {time.perf_counter() - t0:.1f} s", flush=True)
+    chunked_launches = phase_chunked(dev, sw, ops, core, runs, db, queries)
     rows = phase_timing(dev, sw, ops)
 
     model_worst = phase_model_kernels(dev, fa, ssd)
     model_launches, _ = phase_model_path(dev)
     model_rows = phase_model_timing(dev, fa, ssd)
 
-    main_row = rows[0]
+    main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
         "name": "sw", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": worst, "exact_cases": cases,
+        "launches": launches + chunked_launches,
+        "launches_by_path": {"one-subject farm": launches,
+                             "chunked search": chunked_launches},
+        "max_abs_err": worst, "exact_cases": cases,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,
-        "shapes": [{k: r[k] for k in ("q", "d", "ms", "plain_ms", "bound_ms",
-                                      "bound_by")} for r in rows],
+        "shape": f"B={TIMING_CHUNK} subjects of D={MEAN_LEN}, q=1000",
+        "shapes": [{k: r[k] for k in ("q", "b", "d", "dp", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "share")}
+                   for r in rows],
     }]
     for name, source, replaces, shape in (
             ("fa", FA_SOURCE, FA_REPLACES,

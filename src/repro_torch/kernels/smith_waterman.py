@@ -4,9 +4,10 @@ PyTorch version.
 Counterpart of ``repro.kernels.smith_waterman`` (the Pallas TPU kernel
 ``_sw_kernel`` behind ``sw_pallas``).  :func:`sw_batch` scores one query
 profile against a batch of subjects: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/smith_waterman.cu`` (one thread block per
-subject) and counts the launch; on a CPU tensor it runs :func:`sw_plain`.
-There is no fallback from the kernel to the plain version.
+hand-written kernel in ``csrc/smith_waterman.cu`` and counts the launch; on
+a CPU tensor it runs :func:`sw_plain`.  There is no fallback from the
+kernel to the plain version.  :func:`pack_subjects` builds its input: a
+database search hands it a chunk of subjects per launch.
 
 :func:`sw_plain` is eager PyTorch on whatever device its inputs are on, with
 the kernel's arithmetic: F in closed form, an exclusive prefix-max of
@@ -17,16 +18,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["sw_batch", "sw_plain", "launch_count", "reset_launch_count",
-           "DEFAULT_TILE", "MAX_QP", "NEG"]
+__all__ = ["sw_batch", "sw_plain", "pack_subjects", "launch_count",
+           "reset_launch_count", "DEFAULT_TILE", "MAX_QP", "NEG"]
 
 NEG = -1e9
 DEFAULT_TILE = 512   # subject chars per padding bucket
 MAX_QP = 8192        # the reference's documented one-block query limit
+WARP_QP = 1024       # largest Qp of the warp kernel (one warp per subject)
+_MAX_SMEM = 232448   # bytes of shared memory a block may opt in to (H100)
 
 LAUNCHES = 0         # kernel launches since the last reset
 _LAUNCH_LOCK = threading.Lock()   # farm workers launch from several threads
@@ -91,6 +94,21 @@ def sw_plain(profile: torch.Tensor, subject: torch.Tensor, go: float,
     return best if subject.dim() > 1 else best[0]
 
 
+def pack_subjects(subjects: Sequence[Any], A: int, device: Any
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad encoded subjects into :func:`sw_batch`'s input: ``(B, Dp)``
+    int32 codes padded with ``A``, Dp the longest subject, and their
+    ``(B,)`` int32 lengths, both on ``device``."""
+    lens = [int(s.shape[0]) for s in subjects]
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    out = torch.full((len(lens), max(lens, default=0)), A, dtype=torch.int32)
+    if sum(lens):
+        out[torch.arange(out.shape[1]) < lengths[:, None]] = torch.cat(
+            [torch.as_tensor(s).reshape(-1).to("cpu", torch.int32)
+             for s in subjects])
+    return out.to(device), lengths.to(device)
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     from ._build import load
@@ -111,8 +129,12 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
     profile: (A, Qp) f32, Qp a multiple of 128 and at most 8192.
     subjects: (B, Dp) int32; codes >= A are padding.  lengths: optional
     (B,) int32, chars at or past ``lengths[b]`` are skipped too.
-    Returns (B,) f32 on the profile's device.  A CUDA profile launches the
-    kernel on the current stream and does not synchronise.
+    Returns (B,) f32 on the profile's device.  A CUDA profile launches one
+    kernel on the current stream and does not synchronise.  The kernel is
+    chosen by Qp alone: Qp <= 1024 runs the warp kernel (one warp per
+    subject, the profile in shared memory, so A * Qp * 4 bytes must fit a
+    block's 227 KB); Qp > 1024 runs the block kernel (one 1024-thread block
+    per subject).
     """
     if profile.dim() != 2 or subjects.dim() != 2:
         raise ValueError(f"profile must be (A, Qp) and subjects (B, Dp), got "
@@ -144,6 +166,12 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
         raise ValueError(f"no Smith-Waterman kernel for {profile.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("profile, subjects and lengths must be contiguous")
+    if Qp <= WARP_QP and A * Qp * 4 > _MAX_SMEM:
+        raise ValueError(f"profile of {A} codes x Qp={Qp} does not fit the "
+                         f"warp kernel's {_MAX_SMEM} bytes of shared memory")
+    if Qp <= WARP_QP and profile.data_ptr() % 16:
+        raise ValueError("the warp kernel reads the profile 16 bytes at a "
+                         "time: its start must be 16-byte aligned")
 
     out = torch.empty((B,), dtype=torch.float32, device=profile.device)
     lib = _lib()

@@ -1,6 +1,7 @@
-"""Card-only tests of the PyTorch port: the CUDA Smith-Waterman kernel held
-against its plain PyTorch version on the card, exactly, and the farm search
-launching it once per task; the flash-attention kernels (bf16: wgmma with
+"""Card-only tests of the PyTorch port: the CUDA Smith-Waterman kernels (the
+warp kernel at every Qp up to 1024, the block kernel above) held against
+their plain PyTorch version on the card, exactly, and the farm search
+launching them once per task or once per chunk of the database; the flash-attention kernels (bf16: wgmma with
 TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernels
 (five passes per call) against their plain versions, on their edge cases;
 the Zamba2 smoke prefill launching both.  They carry the ``gpu`` marker
@@ -33,7 +34,10 @@ def _codes(rng, n):
     return torch.from_numpy(rng.integers(0, 20, n).astype(np.int32))
 
 
-@pytest.mark.parametrize("qlen", [1, 144, 1000, 4000])
+# Every warp-kernel instance (Qp = 128 .. 1024), both sides of the dispatch
+# (Qp 1024 and 1152), and the block kernel at Qp 4096.
+@pytest.mark.parametrize("qlen", [1, 129, 144, 257, 385, 513, 641, 769, 897,
+                                  1000, 1024, 1152, 4000])
 def test_kernel_equals_plain_on_card(dev, qlen):
     rng = np.random.default_rng(qlen)
     prof, q_len = ops.build_profile(_codes(rng, qlen).to(dev),
@@ -51,12 +55,45 @@ def test_kernel_equals_plain_on_card(dev, qlen):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("B", [1, 7, 9, 33])   # not multiples of 4 or 8 warps
+@pytest.mark.parametrize("qlen", [1000, 1152])
+def test_kernel_batch_edges_on_card(dev, B, qlen):
+    """Tail warps, empty subjects, interior codes >= A, negative codes (row
+    0, as the reference clips them), junk past the lengths, and a profile
+    whose padded query rows score +7, so that they would win if the kernel
+    let them into the best score."""
+    rng = np.random.default_rng(B * qlen)
+    prof, q_len = ops.build_profile(_codes(rng, qlen).to(dev),
+                                    ops.BLOSUM50.to(dev))
+    prof[:, q_len:] = 7.0
+    A = prof.shape[0]
+    lens = rng.integers(0, 400, B)
+    lens[0] = 0
+    subjects = [rng.integers(0, 20, n).astype(np.int32) for n in lens]
+    if B > 2:
+        subjects[1][::3] = A + 5
+        subjects[2][1::4] = -3
+    subj, lengths = sw.pack_subjects(subjects, A, dev)
+    subj = torch.cat([subj, torch.full((B, 9), 3, dtype=torch.int32,
+                                       device=dev)], 1)   # junk past lengths
+    for go, ge in GAPS + [(10.3, 2.1)]:
+        got = sw.sw_batch(prof, subj, lengths, gap_open=go, gap_extend=ge,
+                          q_len=q_len)
+        live = torch.arange(subj.shape[1], device=dev) < lengths[:, None]
+        want = sw.sw_plain(prof, torch.where(live, subj, A), go, ge, q_len)
+        assert torch.equal(got, want), (go, ge, got.tolist(), want.tolist())
+
+
 def test_wrapper_refuses_non_contiguous_on_card(dev):
     prof, q_len = ops.build_profile(torch.zeros(5, dtype=torch.int32, device=dev),
                                     ops.BLOSUM50.to(dev))
     subj = torch.zeros((8, 2), dtype=torch.int32, device=dev).T
     with pytest.raises(ValueError, match="contiguous"):
         sw.sw_batch(prof, subj, gap_open=10.0, gap_extend=2.0, q_len=q_len)
+    shifted = torch.zeros(prof.numel() + 1, device=dev)[1:].view(prof.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        sw.sw_batch(shifted, subj.T.contiguous(), gap_open=10.0,
+                    gap_extend=2.0, q_len=q_len)
 
 
 def test_sw_search_via_farm_on_card(dev):
@@ -71,6 +108,35 @@ def test_sw_search_via_farm_on_card(dev):
     assert sw.launch_count() - before == len(db)
     prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
     assert got == [float(sw.sw_plain(prof, s, 10.0, 2.0, q_len)) for s in db]
+
+
+def test_chunked_farm_equals_one_subject_farm_on_card(dev):
+    """Length-sorted chunks of the database, one launch per chunk, give the
+    one-subject farm's scores in database order."""
+    rng = np.random.default_rng(4)
+    query = _codes(rng, 497).to(dev)
+    db = [rng.integers(0, 20, n).astype(np.int32)
+          for n in rng.integers(1, 900, 70)]
+    one = TaskFarm(2, preserve_order=True)
+    one.add_stream([torch.from_numpy(s).to(dev) for s in db])
+    one.add_worker(FnNode(lambda s: float(ops.smith_waterman(query, s))))
+    want = one.run_and_wait()
+
+    prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
+    order = sorted(range(len(db)), key=lambda i: -len(db[i]))
+    chunks = [sw.pack_subjects([db[i] for i in order[c:c + 16]], 24, dev)
+              for c in range(0, len(db), 16)]
+    before = sw.launch_count()
+    farm = TaskFarm(2, preserve_order=True)
+    farm.add_stream(chunks)
+    farm.add_worker(FnNode(lambda ch: sw.sw_batch(
+        prof, *ch, gap_open=10.0, gap_extend=2.0, q_len=q_len)))
+    scores = torch.cat(farm.run_and_wait()).tolist()
+    assert sw.launch_count() - before == len(chunks)
+    got = [0.0] * len(db)
+    for pos, i in enumerate(order):
+        got[i] = scores[pos]
+    assert got == want
 
 
 # -- flash attention and SSD kernels against their plain versions ---------

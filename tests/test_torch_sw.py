@@ -18,9 +18,11 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import convert
+from repro_torch.core import FnNode, TaskFarm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import smith_waterman as sw
-from repro_torch.kernels.smith_waterman import MAX_QP, sw_batch, sw_plain
+from repro_torch.kernels.smith_waterman import (MAX_QP, pack_subjects,
+                                                sw_batch, sw_plain)
 
 CPU = "cpu"
 GAPS = [(10.0, 2.0), (5.0, 2.0)]  # the paper's two regimes
@@ -147,6 +149,60 @@ def test_sw_batch_with_lengths_matches_single_pairs(gaps):
     single = [float(sw_plain(prof, torch.from_numpy(s), go, ge, q_len))
               for s in subjects]
     assert single == want
+
+
+def _chunked_search(query, db, chunk, gap_open, gap_extend):
+    """The database search as the main path drives it: sort by length,
+    longest first; one ``sw_batch`` call per chunk through the ordered
+    farm; scores scattered back to database order."""
+    prof, q_len = ops.build_profile(torch.from_numpy(query))
+    A = prof.shape[0]
+    order = sorted(range(len(db)), key=lambda i: -len(db[i]))
+    chunks = [pack_subjects([db[i] for i in order[c:c + chunk]], A, CPU)
+              for c in range(0, len(db), chunk)]
+    farm = TaskFarm(2, preserve_order=True)
+    farm.add_stream(chunks)
+    farm.add_worker(FnNode(lambda ch: sw_batch(
+        prof, *ch, gap_open=gap_open, gap_extend=gap_extend, q_len=q_len)))
+    flat = torch.cat(farm.run_and_wait())
+    scores = torch.empty(len(db))
+    scores[torch.tensor(order)] = flat
+    return scores.tolist(), len(chunks)
+
+
+def test_chunked_search_matches_one_subject_and_reference():
+    """``pack_subjects`` pads with A and keeps the true lengths, an empty
+    subject included.  Length-sorted chunks of 8 through the farm, in
+    database order, equal the one-subject entry point on every subject and
+    the JAX package on a sample, bit for bit, in both gap regimes.  The
+    database has an all-padding subject and one with interior codes >= A."""
+    subjects = [np.array([3, 1, 4], np.int32), np.zeros(0, np.int32),
+                torch.tensor([15, 9], dtype=torch.int32), np.array([2], np.int64)]
+    subj, lengths = pack_subjects(subjects, 24, CPU)
+    assert subj.dtype == lengths.dtype == torch.int32
+    assert lengths.tolist() == [3, 0, 2, 1]
+    assert subj.tolist() == [[3, 1, 4], [24, 24, 24], [15, 9, 24], [2, 24, 24]]
+    empty, no_lengths = pack_subjects([], 24, CPU)
+    assert empty.shape == (0, 0) and no_lengths.shape == (0,)
+
+    rng = np.random.default_rng(40)
+    query = _codes(rng, 37)
+    db = [_codes(rng, int(n)) for n in rng.integers(1, 701, 40)]
+    db[5] = np.full(30, 24, np.int32)                  # all padding
+    db[9][::4] = 24 + rng.integers(0, 6, len(db[9][::4]))  # codes >= A inside
+    sample = [5, 9] + list(rng.choice(40, 10, replace=False))
+    q, jq = torch.from_numpy(query), jnp.asarray(query)
+    for go, ge in GAPS:
+        got, n_chunks = _chunked_search(query, db, 8, go, ge)
+        assert n_chunks == 5
+        one = [float(ops.smith_waterman(q, torch.from_numpy(d), gap_open=go,
+                                        gap_extend=ge, device=CPU))
+               for d in db]
+        assert got == one
+        assert got[5] == 0.0 and max(got) > 0
+        want = [float(jops.smith_waterman(jq, jnp.asarray(db[i]), gap_open=go,
+                                          gap_extend=ge)) for i in sample]
+        assert [got[i] for i in sample] == want
 
 
 @pytest.mark.parametrize("qlen", [0, MAX_QP + 1])
