@@ -15,7 +15,14 @@ kernel launch counts set to 0 just before it and read just after:
   its 9 shared-attention blocks and the SSD scan (five CUDA kernels per
   call, counted as one launch) in its 45 Mamba2 blocks, then the
   ``ServeEngine`` serving 8 requests through ``decode_step`` (plain
-  PyTorch, as in the reference).
+  PyTorch, as in the reference);
+* the moe, vlm and audio families at full width, depth cut to fit the
+  card in bf16: Mixtral-8x7B (16 of 32 layers; prefill of 2 x 8192, two
+  of its 4096-token windows, then 8 served requests), Llama-3.2-Vision-90B
+  (25 of 100 layers; prefill of 2048 tokens cross-attending 1601 vision
+  rows, then 16 decode steps) and MusicGen-medium (all 48 layers; prefill
+  of 2 x 1500 frames, then 16 decode steps), every attention block of each
+  prefill through the flash-attention kernel.
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -38,9 +45,16 @@ Phases, each on lines of its own; any failed check exits non-zero:
   7. the Zamba2 main path: prefill (9 FA + 45 SSD launches each), the
      f32 prefill-against-decode consistency check, serving;
   8. FA and SSD kernel, plain, bound and library times at the main path's
-     shapes, the FA kernel's TFLOP/s and share of its bound, and the SSD
-     scan's time split by its five passes (torch.profiler);
-  9. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+     shapes (FA also at every shape of phase 9's prefills), the FA
+     kernel's TFLOP/s and share of its bound, and the SSD scan's time
+     split by its five passes (torch.profiler);
+  9. the moe, vlm and audio families: per model, prefill (FA launches
+     16, 25 and 48; SSD and SW none), tokens/s, the prefill's device time
+     by part (expert GEMMs, MoE dispatch, FA, the rest), serving (Mixtral)
+     or decode steps after the prefill, and the f32 prefill-against-decode
+     consistency check at a cut depth (Mixtral 2 layers over 4608 tokens,
+     past its window; Llama-Vision one period of 5 layers; MusicGen all 48);
+  10. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -131,6 +145,16 @@ FA_BF16_EDGES = [
     (1, 2, 2, 100, 300, 80, None, 0, False),
 ]
 FA_SIMT_MS = 7.8476           # the replaced SIMT bf16 kernel at the main shape (PERF.md §6)
+# The bf16 FA kernel's timing rows (phase 8): every shape a prefill of
+# phase 7 or 9 gives it (path, B, H, Hkv, S, T, D, causal, window).
+MAIN_FA_PATH = "zamba2 prefill"
+FA_SHAPES = [
+    (MAIN_FA_PATH, PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 80, True, None),
+    ("mixtral prefill", 2, 32, 8, 8192, 8192, 128, True, 4096),
+    ("llama-vision self", 1, 64, 8, 2048, 2048, 128, True, None),
+    ("llama-vision cross", 1, 64, 8, 2048, 1601, 128, False, None),
+    ("musicgen prefill", 2, 32, 32, 1500, 1500, 64, True, None),
+]
 SSD_SERIAL_MS = 4.9933        # the replaced SSD kernel (chunks in order per (batch, head)) there
 SSD_KERNEL = re.compile(r"ssd_\w*kernel")   # the five passes' kernel names
 
@@ -727,11 +751,111 @@ def _events_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def serve_requests(cfg, params, dev, rng):
+    """``SERVE_REQS`` requests of 16-64 prompt tokens through the
+    ``ServeEngine`` on the threads farm: tags and request ids in order,
+    ``SERVE_NEW`` tokens each, request 0 alone gives its batched tokens,
+    and no kernel launched (serving runs ``decode_step`` only, as in the
+    reference).  Returns (engine, wall seconds)."""
+    from repro_torch.launch.serve import Request, ServeEngine
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                              int(rng.integers(16, 65)))]
+               for _ in range(SERVE_REQS)]
+    before = read_counts()
+    eng = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                      params=params, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
+    t0 = time.perf_counter()
+    results = eng.run()
+    serve_wall = time.perf_counter() - t0
+    check(len(results) == SERVE_REQS, f"served {len(results)} of {SERVE_REQS}")
+    check([r.tag for r in results] == list(range(SERVE_REQS)),
+          f"tags out of order: {[r.tag for r in results]}")
+    check([r.rid for r in results] == list(range(SERVE_REQS)),
+          "requests out of submission order")
+    check(all(len(r.generated) == SERVE_NEW for r in results),
+          f"token counts {[len(r.generated) for r in results]}")
+    solo = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                       params=params, device=dev)
+    solo.submit(Request(rid=0, prompt=prompts[0], max_new=SERVE_NEW))
+    alone = solo.run()[0]
+    check(alone.generated == results[0].generated,
+          f"isolation: request 0 alone {alone.generated} != batched "
+          f"{results[0].generated}")
+    after = read_counts()
+    check(after == before, f"serving launched kernels: {before} -> {after}")
+    lat = eng._latency
+    rep = eng.last_report
+    print(f"serve {cfg.name} {SERVE_REQS} requests (prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, max_new "
+          f"{SERVE_NEW}, max_batch {SERVE_BATCH}, max_len {SERVE_LEN}): "
+          f"{rep.meta['tokens']} tokens in {eng.steps_run} decode steps, "
+          f"{serve_wall:.3f} s, {rep.gauges['serve.tokens_per_s']:.2f} tokens/s; "
+          f"latency p50 {lat.p50 / 1e3:.1f} ms p99 {lat.p99 / 1e3:.1f} ms; tags "
+          f"in order; request 0 alone gives the same tokens; serving runs "
+          f"decode_step only, so no kernel (as in the reference)", flush=True)
+    return eng, serve_wall
+
+
+def _step_batch(batch, t):
+    """The inputs of position t (the vision stream goes with every step)."""
+    return {k: v if k == "vision_embeds" else v[:, t:t + 1]
+            for k, v in batch.items()}
+
+
+def consistency(dev, cfg, batch, bf16_logits, launches):
+    """f32 ``prefill`` through the kernels against f32 token-by-token
+    ``decode_step`` (no kernel) from an empty cache, on the last logits,
+    within ``CONSIST_TOL``; the bf16 model's prefill logits on ``batch``
+    (``bf16_logits``: its draws the f32 model repeats unrounded) must miss
+    it.  The f32 prefill must launch ``launches``."""
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    S = next(iter(batch.values())).shape[1]
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_params(cfg32, 0, device=dev)     # the same draws, unrounded
+    with torch.no_grad():
+        before = read_counts()
+        p_logits = prefill(params, batch, cfg32)[0]
+        launched = {k: v - before[k] for k, v in read_counts().items()}
+        check(launched == launches,
+              f"{cfg.name} f32 prefill launched {launched}, expected {launches}")
+        with _plain_versions():
+            plain_logits = prefill(params, batch, cfg32)[0]
+        cache = init_cache(cfg32, 1, S, device=dev)
+        t0 = time.perf_counter()
+        for t in range(S):
+            d_logits, cache = decode_step(params, _step_batch(batch, t), cache,
+                                          t, cfg32)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    err = float((p_logits - d_logits).abs().max())
+    err_plain = float((plain_logits - d_logits).abs().max())
+    err_kp = float((p_logits - plain_logits).abs().max())
+    err_bf16 = float((bf16_logits - d_logits).abs().max())
+    scale = float(d_logits.abs().max())
+    print(f"consistency {cfg.name} ({cfg.n_layers} layers) f32, S={S}: max "
+          f"|prefill - decode| last logits {err:.3e} (tol {CONSIST_TOL}, logits "
+          f"up to {scale:.3f}); the plain versions' prefill is {err_plain:.3e} "
+          f"from the decode and {err_kp:.3e} from the kernels'; the bf16 "
+          f"prefill is {err_bf16:.3e} from the f32 decode, so bf16 fails the "
+          f"tolerance; argmax prefill {int(p_logits.flatten(1).argmax(-1)[0])} "
+          f"decode {int(d_logits.flatten(1).argmax(-1)[0])}; {S} decode steps "
+          f"{dec_s:.2f} s", flush=True)
+    check(bool(torch.isfinite(p_logits).all()), "f32 prefill logits not finite")
+    check(err <= CONSIST_TOL,
+          f"{cfg.name} f32 prefill vs decode: {err} > {CONSIST_TOL}")
+    check(err_bf16 > CONSIST_TOL,
+          f"{cfg.name} bf16 prefill vs f32 decode {err_bf16} is within "
+          f"{CONSIST_TOL}: the tolerance would not catch bf16")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def phase_model_path(dev):
     """Zamba2-2.7B at full width: prefill through the kernels, the f32
     consistency check, serving through the ServeEngine."""
     from repro_torch.configs import ARCHS
-    from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     param_count, prefill)
     from repro_torch.models.model import segment_counts
@@ -834,43 +958,7 @@ def phase_model_path(dev):
     reset_counts()
 
     # serving: 8 requests through the ServeEngine, bf16, full width
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
-                                              int(rng.integers(16, 65)))]
-               for _ in range(SERVE_REQS)]
-    before = read_counts()
-    eng = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
-                      params=params, device=dev)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
-    t0 = time.perf_counter()
-    results = eng.run()
-    serve_wall = time.perf_counter() - t0
-    check(len(results) == SERVE_REQS, f"served {len(results)} of {SERVE_REQS}")
-    check([r.tag for r in results] == list(range(SERVE_REQS)),
-          f"tags out of order: {[r.tag for r in results]}")
-    check([r.rid for r in results] == list(range(SERVE_REQS)),
-          "requests out of submission order")
-    check(all(len(r.generated) == SERVE_NEW for r in results),
-          f"token counts {[len(r.generated) for r in results]}")
-    solo = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
-                       params=params, device=dev)
-    solo.submit(Request(rid=0, prompt=prompts[0], max_new=SERVE_NEW))
-    alone = solo.run()[0]
-    check(alone.generated == results[0].generated,
-          f"isolation: request 0 alone {alone.generated} != batched "
-          f"{results[0].generated}")
-    after = read_counts()
-    check(after == before, f"serving launched kernels: {before} -> {after}")
-    lat = eng._latency
-    rep = eng.last_report
-    print(f"serve {SERVE_REQS} requests (prompts {min(map(len, prompts))}-"
-          f"{max(map(len, prompts))} tokens, max_new {SERVE_NEW}, max_batch "
-          f"{SERVE_BATCH}, max_len {SERVE_LEN}): {rep.meta['tokens']} tokens in "
-          f"{eng.steps_run} decode steps, {serve_wall:.3f} s, "
-          f"{rep.gauges['serve.tokens_per_s']:.2f} tokens/s; latency p50 "
-          f"{lat.p50 / 1e3:.1f} ms p99 {lat.p99 / 1e3:.1f} ms; tags in order; "
-          f"request 0 alone gives the same tokens; serving runs decode_step "
-          f"only, so no kernel (as in the reference)", flush=True)
+    eng, serve_wall = serve_requests(cfg, params, dev, rng)
     # the same decode step at the engine's batch, outside the farm
     cache = init_cache(cfg, SERVE_BATCH, SERVE_LEN, device=dev)
     one = {"tokens": torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device=dev)}
@@ -896,50 +984,15 @@ def phase_model_path(dev):
           f"wall, host enqueue {enq / 16 * 1e3:.3f} ms/step, {n_kernels} device "
           f"kernels per step (torch.profiler); in the engine "
           f"{serve_wall / eng.steps_run * 1e3:.3f} ms/step", flush=True)
-    del eng, solo, cache
+    del eng, cache
 
     # consistency: f32 prefill (kernels) against f32 decode (no kernel)
-    prompt = toks[:1, :CONSIST_S]
+    prompt = {"tokens": toks[:1, :CONSIST_S]}
     with torch.no_grad():
-        bf16_logits = prefill(params, {"tokens": prompt}, cfg)[0]
+        bf16_logits = prefill(params, prompt, cfg)[0]
     del params
     torch.cuda.empty_cache()
-    cfg32 = cfg.replace(dtype="float32")
-    params = init_params(cfg32, 0, device=dev)     # the same draws, unrounded
-    with torch.no_grad():
-        before = read_counts()
-        p_logits = prefill(params, {"tokens": prompt}, cfg32)[0]
-        launched = {k: v - before[k] for k, v in read_counts().items()}
-        check(launched == {"sw": 0, "fa": g, "ssd": g * inner},
-              f"f32 prefill launched {launched}")
-        with _plain_versions():
-            plain_logits = prefill(params, {"tokens": prompt}, cfg32)[0]
-        cache = init_cache(cfg32, 1, CONSIST_S, device=dev)
-        t0 = time.perf_counter()
-        for t in range(CONSIST_S):
-            d_logits, cache = decode_step(params, {"tokens": prompt[:, t:t + 1]},
-                                          cache, t, cfg32)
-        torch.cuda.synchronize()
-        dec_s = time.perf_counter() - t0
-    err = float((p_logits - d_logits).abs().max())
-    err_plain = float((plain_logits - d_logits).abs().max())
-    err_kp = float((p_logits - plain_logits).abs().max())
-    err_bf16 = float((bf16_logits - d_logits).abs().max())
-    scale = float(d_logits.abs().max())
-    print(f"consistency f32, S={CONSIST_S}: max |prefill - decode| last logits "
-          f"{err:.3e} (tol {CONSIST_TOL}, logits up to {scale:.3f}); the plain "
-          f"versions' prefill is {err_plain:.3e} from the decode and "
-          f"{err_kp:.3e} from the kernels'; the bf16 prefill is {err_bf16:.3e} "
-          f"from the f32 decode, so bf16 fails the tolerance; argmax "
-          f"prefill {int(p_logits.argmax())} decode {int(d_logits.argmax())}; "
-          f"{CONSIST_S} decode steps {dec_s:.2f} s", flush=True)
-    check(bool(torch.isfinite(p_logits).all()), "f32 prefill logits not finite")
-    check(err <= CONSIST_TOL, f"f32 prefill vs decode: {err} > {CONSIST_TOL}")
-    check(err_bf16 > CONSIST_TOL,
-          f"bf16 prefill vs f32 decode {err_bf16} is within {CONSIST_TOL}: "
-          f"the tolerance would not catch bf16")
-    del params, cache
-    torch.cuda.empty_cache()
+    consistency(dev, cfg, prompt, bf16_logits, {"sw": 0, "fa": g, "ssd": g * inner})
     return c1, {"prefill_ms": ms3, "first_prefill_ms": ms1}
 
 
@@ -973,41 +1026,73 @@ def _leaves(tree):
 def phase_model_timing(dev, fa, ssd):
     """FA and SSD at the main path's shapes: kernel, plain, bound, library."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    rows = {}
-    B, S, H, D = PREFILL_B, PREFILL_S, 32, 80
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))    # the model's views
-    got = fa.flash_attention(qv, kv, vv)
-    want = fa.fa_plain(qv, kv, vv)
-    torch.cuda.synchronize()
-    err, ok = within(got, want, FA_TOL[torch.bfloat16])
-    check(ok, f"FA kernel != plain at the main path's shape: {err}")
-    kern = cuda_ms(lambda: fa.flash_attention(qv, kv, vv), iters=10, warmup=2)
-    plain = cuda_ms(lambda: fa.fa_plain(qv, kv, vv), iters=3, warmup=1)
+    rows = {"fa_shapes": []}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = cuda_ms(lambda: sdpa(qv, kv, vv, is_causal=True), iters=10, warmup=2)
-    lib_err = float((sdpa(qv, kv, vv, is_causal=True).float() - want.float()).abs().max())
-    pairs = S * (S + 1) // 2                 # causal (query, key) pairs, S == T
-    t_ops = 4 * B * H * D * pairs / PEAK_BF16
-    t_bytes = 4 * B * H * S * D * 2 / PEAK_BYTES    # q, k, v read, o written
-    rows["fa"] = dict(ms=kern, plain_ms=plain, library_ms=lib,
-                      bound_ms=max(t_ops, t_bytes) * 1e3,
-                      bound_by="operations" if t_ops >= t_bytes else "bytes",
-                      err=err)
-    print(f"timing fa B={B} H={H} S=T={S} D={D} causal bf16: kernel {kern:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {rows['fa']['bound_ms']:.4f} ms "
-          f"({rows['fa']['bound_by']}: {4 * B * H * D * pairs / 1e9:.2f} GFLOP at "
-          f"989 TFLOP/s bf16; bytes {t_bytes * 1e3:.4f} ms), library "
-          f"scaled_dot_product_attention(is_causal=True) {lib:.4f} ms (|err| vs "
-          f"plain {lib_err:.3e}); kernel |err| vs plain {err:.3e}", flush=True)
-    flop = 4 * B * H * D * pairs
-    print(f"timing fa bf16 wgmma/TMA kernel: {flop / (kern * 1e-3) / 1e12:.1f} "
-          f"TFLOP/s over the {flop / 1e9:.2f} GFLOP of causal pairs, "
-          f"{rows['fa']['bound_ms'] / kern:.4f} of the bound, "
-          f"{kern / lib:.3f}x the library's time; the SIMT kernel it replaced "
-          f"read {FA_SIMT_MS} ms ({FA_SIMT_MS / kern:.1f}x this one)", flush=True)
-    del q, k, v, qv, kv, vv, got, want
+    for i, (path, B, H, Hkv, S, T, D, causal, window) in enumerate(FA_SHAPES):
+        # the model's layouts: q (B,S,H,D), k/v (B,T,Hkv,D), passed as views;
+        # the main shape draws first from ``gen``, as the SSD inputs do after
+        g = gen if path == MAIN_FA_PATH else \
+            torch.Generator(device=dev).manual_seed(50 + i)
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
+        kw = dict(causal=causal, window=window)
+        got = fa.flash_attention(qv, kv, vv, **kw)
+        want = fa.fa_plain(qv, kv, vv, **kw)
+        torch.cuda.synchronize()
+        err, ok = within(got, want, FA_TOL[torch.bfloat16])
+        check(ok, f"FA kernel != plain at the {path} shape: {err}")
+        del got
+        kern = cuda_ms(lambda: fa.flash_attention(qv, kv, vv, **kw), iters=10,
+                       warmup=2)
+        plain = cuda_ms(lambda: fa.fa_plain(qv, kv, vv, **kw), iters=2, warmup=1)
+        lib_kw, lib_args = {"enable_gqa": Hkv != H}, []
+        if window:
+            qpos = torch.arange(S, device=dev)[:, None]
+            kpos = torch.arange(T, device=dev)[None, :]
+            lib_kw["attn_mask"] = (kpos <= qpos) & (kpos > qpos - window)
+            lib_args.append("attn_mask=<bool causal window mask>")
+        elif causal:
+            lib_kw["is_causal"] = True
+            lib_args.append("is_causal=True")
+        if Hkv != H:
+            lib_args.append("enable_gqa=True")
+        lib_name = f"scaled_dot_product_attention({', '.join(lib_args)})"
+        try:
+            lib = cuda_ms(lambda: sdpa(qv, kv, vv, **lib_kw), iters=10, warmup=2)
+            lib_err = float((sdpa(qv, kv, vv, **lib_kw).float()
+                             - want.float()).abs().max())
+        except torch.cuda.OutOfMemoryError:
+            lib, lib_err = None, None
+            torch.cuda.empty_cache()
+        pairs = fa_pairs(S, T, causal, window)
+        flop = 4 * B * H * D * pairs
+        t_ops = flop / PEAK_BF16
+        t_bytes = 2 * (B * H * S * D + B * Hkv * T * D) * 2 / PEAK_BYTES
+        row = dict(path=path, shape=f"B={B} H={H} Hkv={Hkv} S={S} T={T} D={D}"
+                   f"{' causal' if causal else ' non-causal'}"
+                   f"{f' window {window}' if window else ''} bf16",
+                   ms=kern, plain_ms=plain, library_ms=lib, library=lib_name,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", err=err)
+        rows["fa_shapes"].append(row)
+        lib_txt = (f"{lib:.4f} ms (|err| vs plain {lib_err:.3e})" if lib is not None
+                   else "not measured (out of memory)")
+        print(f"timing fa {path} {row['shape']}: kernel {kern:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{flop / 1e9:.2f} GFLOP at 989 TFLOP/s bf16; bytes "
+              f"{t_bytes * 1e3:.4f} ms), {flop / (kern * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{row['bound_ms'] / kern:.4f} of the bound; library {lib_name} "
+              f"{lib_txt}; kernel |err| vs plain {err:.3e}", flush=True)
+        if path == MAIN_FA_PATH:
+            rows["fa"] = row
+            print(f"timing fa bf16 wgmma/TMA kernel at the {path} shape: "
+                  f"{kern / lib:.3f}x the library's time; the SIMT kernel it "
+                  f"replaced read {FA_SIMT_MS} ms ({FA_SIMT_MS / kern:.1f}x this "
+                  f"one)", flush=True)
+        del q, k, v, qv, kv, vv, want, lib_kw
+        torch.cuda.empty_cache()
 
     b, T, Hs, P, N, l = PREFILL_B, PREFILL_S, 80, 64, 64, 256
     x = torch.randn((b, T, Hs, P), generator=gen, device=dev).to(torch.bfloat16)
@@ -1069,6 +1154,299 @@ def phase_model_timing(dev, fa, ssd):
     return rows
 
 
+# phase 9: the moe, vlm and audio families at full width, bf16, random
+# weights from seed 0, depth cut so the bf16 weights fit the card's 80 GB
+# beside the activations: the path's name in the kernels line, the cut,
+# layers kept, prefill batch and length, layers and prompt of the f32
+# consistency check.  Mixtral prefills two windows,
+# a multiple of its window of 4096: on a windowed model the reference's
+# prefill keeps the last min(window, S) rows, and its decode then writes at
+# cache_len % T, which evicts the wrong row when S is not a multiple of
+# the window.  Its consistency prompt of 4608 runs past the window, so the
+# kernel's window and the decode's rolling cache are both exercised.
+FAMILY_RUNS = {
+    "mixtral-8x7b": dict(path="mixtral", cut="16 of 32 layers", layers=16,
+                         batch=2, seq=8192, consist_layers=2, consist_s=4608),
+    "llama-3.2-vision-90b": dict(
+        path="llama-vision", cut="25 of 100 layers: 5 whole periods of 4 self "
+        "+ 1 cross blocks", layers=25, batch=1, seq=2048, consist_layers=5,
+        consist_s=512),
+    "musicgen-medium": dict(path="musicgen", cut="all 48 layers, nothing cut",
+                            layers=48, batch=2, seq=1500, consist_layers=48,
+                            consist_s=512),
+}
+FAMILY_DECODE = 16            # decode steps after the vlm and audio prefills
+FAMILY_SEED = 9               # tokens, frames and vision embeddings
+GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
+MOE_SPANS = ("moe.apply", "moe.experts")    # profiler ranges of the MoE split
+
+
+def family_batch(cfg, B, S, seed, dev):
+    """The model's inputs, drawn with numpy: token ids, or frame embeddings
+    (the audio stub frontend); vlm adds (B, vision_patches, vision_dim)
+    vision embeddings (the vlm stub frontend)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        b = {"frames": torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model), dtype=np.float32))}
+    else:
+        b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision_patches, cfg.vision_dim), dtype=np.float32))
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def fa_pairs(S, T, causal, window):
+    """(query, key) pairs a flash-attention call must score: causal with
+    q_offset 0, a sliding window of ``window`` keys, or all S x T."""
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def prefill_flops(cfg, B, S):
+    """The matmul and attention FLOPs one ``prefill`` needs (unpadded heads,
+    routed experts only, logits of the last position)."""
+    d, H, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    proj = 2 * d * (2 * H * dh + 2 * kv * dh)            # q, k, v, o per row
+    ffn = 2 * 3 * d * cfg.d_ff * (cfg.top_k if cfg.n_experts else 1) \
+        + 2 * d * cfg.n_experts
+    attn = 4 * B * H * dh * fa_pairs(S, S, True, cfg.sliding_window)
+    kinds = cfg.layer_kinds()
+    n_self = sum(k == "attn" for k in kinds)
+    flops = n_self * (B * S * (proj + ffn) + attn)
+    n_cross = sum(k == "cross" for k in kinds)
+    if n_cross:
+        P = cfg.vision_patches
+        flops += 2 * B * P * cfg.vision_dim * d            # vision projection
+        flops += n_cross * (B * S * (2 * d * 2 * H * dh + ffn)
+                            + B * P * 2 * d * 2 * kv * dh
+                            + 4 * B * H * dh * S * P)
+    return flops + 2 * B * d * cfg.vocab_size * max(cfg.n_codebooks, 1)
+
+
+@contextlib.contextmanager
+def _moe_spans():
+    """``torch.profiler`` ranges around each MoE block ("moe.apply") and
+    each expert's SwiGLU inside it ("moe.experts"), for the prefill split."""
+    from torch.profiler import record_function
+    from repro_torch.models import model, moe
+    saved = model.moe_apply, moe._expert_ffn
+
+    def apply(*a, **kw):
+        with record_function(MOE_SPANS[0]):
+            return saved[0](*a, **kw)
+
+    def experts(*a, **kw):
+        with record_function(MOE_SPANS[1]):
+            return saved[1](*a, **kw)
+    model.moe_apply, moe._expert_ffn = apply, experts
+    try:
+        yield
+    finally:
+        model.moe_apply, moe._expert_ffn = saved
+
+
+def _kernels_under(ev):
+    """(name, us) of every kernel launched inside a profiled CPU range."""
+    for k in ev.kernels:
+        yield k.name, k.duration
+    for ch in ev.cpu_children:
+        yield from _kernels_under(ch)
+
+
+def prefill_split(prof):
+    """One profiled prefill's device time (ms) by part: FA, expert GEMMs,
+    the experts' elementwise SwiGLU, the MoE dispatch (routing, sort,
+    gather, per-expert counts, scatter-add), other GEMMs, the rest."""
+    # the device side mirrors each range as an annotation: not a kernel
+    kernels = [(ev.name, ev.device_time_total) for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.name not in MOE_SPANS]
+    total = sum(us for _, us in kernels) / 1e3
+    fa_ms = sum(us for n, us in kernels if "fa_kernel" in n
+                or "fa_wgmma_kernel" in n) / 1e3
+    gemm_ms = sum(us for n, us in kernels
+                  if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
+    moe_k, exp_k = [], []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            if ev.name == MOE_SPANS[0]:
+                moe_k += list(_kernels_under(ev))
+            elif ev.name == MOE_SPANS[1]:
+                exp_k += list(_kernels_under(ev))
+    moe_ms = sum(us for _, us in moe_k) / 1e3
+    exp_gemm = sum(us for n, us in exp_k
+                   if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
+    exp_ms = sum(us for _, us in exp_k) / 1e3
+    moe_gemm = sum(us for n, us in moe_k
+                   if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
+    return {"total": total, "fa": fa_ms, "expert GEMMs": exp_gemm,
+            "expert SwiGLU elementwise": exp_ms - exp_gemm,
+            "dispatch": moe_ms - exp_ms,
+            "other GEMMs": gemm_ms - moe_gemm,
+            "rest": total - fa_ms - moe_ms - (gemm_ms - moe_gemm)}
+
+
+def _pad_cache(cache, n):
+    """A prefill's cache with ``n`` empty rows after its last, for decode
+    steps past it (the reference's caches are allocated at max_len)."""
+    return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n))
+            for k, v in cache.items()}
+
+
+def family_main_path(dev, arch, run):
+    """One family at full width: ``prefill`` through the FA kernel (counted
+    window), a steady prefill timed with CUDA events, its device time by
+    part, then serving (moe) or decode steps after the prefill (vlm,
+    audio), then the f32 consistency check at its cut depth."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, init_params, param_count, prefill
+    base = ARCHS[arch]
+    cfg = base.replace(n_layers=run["layers"])
+    B, S = run["batch"], run["seq"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_el = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    extra = (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts else "") \
+        + (f", window {cfg.sliding_window}" if cfg.sliding_window else "") \
+        + (f", cross-attention every {cfg.cross_attn_every} over "
+           f"{cfg.vision_patches} x {cfg.vision_dim} vision rows"
+           if cfg.cross_attn_every else "") \
+        + (f", {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
+    print(f"model {arch} ({run['cut']}): d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (padded to {cfg.n_heads_padded}) x {cfg.hdim}, "
+          f"kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}{extra}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {n_el} tensor elements ({n_bytes / 1e9:.3f} GB), "
+          f"param_count {param_count(cfg)} of the full model's "
+          f"{param_count(base)} ({param_count(base) * 2 / 1e9:.1f} GB in bf16); "
+          f"init {init_s:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    batch = family_batch(cfg, B, S, FAMILY_SEED, dev)
+    torch.cuda.synchronize()
+    want = (B, cfg.n_codebooks, cfg.vocab_size) if cfg.n_codebooks else \
+        (B, cfg.vocab_size)
+
+    reset_counts()                                   # --- counted window ---
+    with torch.no_grad():
+        (logits, cache), ms1 = _events_ms(lambda: prefill(params, batch, cfg))
+    counts = read_counts()                           # --- end of window ---
+    check(counts == {"sw": 0, "fa": cfg.n_layers, "ssd": 0},
+          f"{arch} prefill launched {counts}, expected fa {cfg.n_layers}")
+    check(tuple(logits.shape) == want and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits {tuple(logits.shape)} not {want} or not finite")
+    T = min(S, cfg.sliding_window) if cfg.sliding_window else S
+    kv = (B, T, cfg.n_kv_heads if cfg.n_kv_heads != cfg.n_heads
+          else cfg.n_heads_padded, cfg.hdim)
+    lead = (cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1) \
+        if cfg.cross_attn_every else (cfg.n_layers,)
+    check({k: tuple(v.shape) for k, v in cache.items()} ==
+          {"k": lead + kv, "v": lead + kv}
+          and all(bool(torch.isfinite(v.float()).all()) for v in cache.values()),
+          f"{arch} prefill cache {[(k, tuple(v.shape)) for k, v in cache.items()]}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = prefill(params, batch, cfg)
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del out
+        _, ms2 = _events_ms(lambda: prefill(params, batch, cfg))
+    flops = prefill_flops(cfg, B, S)
+    bound_ms = max(flops / PEAK_BF16, n_bytes / PEAK_BYTES) * 1e3
+    ntok = B * S
+    print(f"prefill {arch} B={B} S={S}: {ms1:.3f} ms (first, counted: fa "
+          f"{counts['fa']} launches), {ms2:.3f} ms steady ({ntok / ms2 * 1e3:.1f} "
+          f"tokens/s); host enqueue {enq * 1e3:.3f} ms of {wall * 1e3:.3f} ms "
+          f"wall; bound {bound_ms:.3f} ms ({flops / 1e12:.2f} TFLOP at 989 "
+          f"TFLOP/s bf16), {bound_ms / ms2:.4f} of it; logits {want} finite, "
+          f"cache shapes ok", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), _moe_spans(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batch, cfg)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    split = prefill_split(prof)
+    if split["total"] > 0:
+        print(f"prefill {arch} device time by part (torch.profiler): " + ", ".join(
+            f"{k} {v:.3f} ms ({v / split['total']:.3f})" for k, v in split.items()
+            if k != "total") + f"; total {split['total']:.3f} ms of a "
+            f"{prof_wall:.3f} ms profiled wall (device idle share "
+            f"{max(0.0, 1 - split['total'] / prof_wall):.4f})", flush=True)
+    else:
+        print(f"prefill {arch} device time by part: the profiler saw no "
+              f"device time (not measured)", flush=True)
+    del prof
+    result = {"prefill_ms": ms2, "first_prefill_ms": ms1, "tokens_per_s":
+              ntok / ms2 * 1e3, "bound_ms": bound_ms, "fa": counts["fa"],
+              "split": split}
+
+    if cfg.family == "moe":
+        del cache
+        eng, _ = serve_requests(cfg, params, dev, np.random.default_rng(0))
+        result["serve_tokens_per_s"] = eng.last_report.gauges["serve.tokens_per_s"]
+        del eng
+    else:
+        # decode steps after the prefill, the cache grown by FAMILY_DECODE rows
+        cache = _pad_cache(cache, FAMILY_DECODE)
+        steps = family_batch(cfg, B, FAMILY_DECODE, FAMILY_SEED + 1, dev)
+        if cfg.family == "vlm":
+            steps["vision_embeds"] = batch["vision_embeds"]
+        before = read_counts()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(FAMILY_DECODE):
+                logits, cache = decode_step(params, _step_batch(steps, t), cache,
+                                            S + t, cfg)
+                check(tuple(logits.shape) == want, f"{arch} decode logits shape")
+            torch.cuda.synchronize()
+            dec = (time.perf_counter() - t0) / FAMILY_DECODE
+        check(read_counts() == before, f"{arch} decode launched a kernel")
+        check(bool(torch.isfinite(logits).all()), f"{arch} decode logits not finite")
+        result["decode_ms"] = dec * 1e3
+        print(f"decode {arch} after the prefill: {FAMILY_DECODE} steps at "
+              f"batch {B}, {dec * 1e3:.3f} ms/step, logits {want} finite, no "
+              f"kernel (plain PyTorch, as in the reference)", flush=True)
+        del cache
+
+    # consistency at the check's depth: the bf16 model's logits first
+    cfg_c = base.replace(n_layers=run["consist_layers"])
+    prompt = family_batch(cfg_c, 1, run["consist_s"], FAMILY_SEED + 2, dev)
+    if cfg_c.n_layers != cfg.n_layers:
+        del params
+        torch.cuda.empty_cache()
+        params = init_params(cfg_c, 0, device=dev)
+    with torch.no_grad():
+        bf16_logits = prefill(params, prompt, cfg_c)[0]
+    del params
+    torch.cuda.empty_cache()
+    consistency(dev, cfg_c, prompt, bf16_logits,
+                {"sw": 0, "fa": cfg_c.n_layers, "ssd": 0})
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_families(dev):
+    """Phase 9: the moe, vlm and audio families at full width."""
+    t_phase = time.perf_counter()
+    results = {}
+    for arch, run in FAMILY_RUNS.items():
+        t0 = time.perf_counter()
+        results[arch] = family_main_path(dev, arch, run)
+        print(f"family {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"families phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of a checkout (src/repro_torch missing)")
@@ -1106,6 +1484,7 @@ def main():
     model_worst = phase_model_kernels(dev, fa, ssd)
     model_launches, _ = phase_model_path(dev)
     model_rows = phase_model_timing(dev, fa, ssd)
+    families = phase_families(dev)
 
     main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
@@ -1128,7 +1507,7 @@ def main():
             ("ssd", SSD_SOURCE, SSD_REPLACES,
              f"b={PREFILL_B} T={PREFILL_S} H=80 P=64 N=64 chunk=256 f32 products")):
         r = model_rows[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": model_launches[name],
             "max_abs_err": max([r["err"], *model_worst[name].values()]),
@@ -1136,7 +1515,20 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": shape, "launches_per": "one zamba2-2.7b prefill",
-        })
+        }
+        if name == "fa":
+            by_path = {"zamba2 prefill": model_launches["fa"]}
+            by_path.update({f"{FAMILY_RUNS[a]['path']} prefill": f["fa"]
+                            for a, f in families.items()})
+            shapes = model_rows["fa_shapes"]
+            entry.update(
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                launches_per="one prefill of each path",
+                max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes)),
+                shapes=[{k: x[k] for k in ("path", "shape", "ms", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms",
+                                           "library")} for x in shapes])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 # Plain Python: it imports neither torch nor anything of ``repro``.  The
 # reference's procs, mesh and all-to-all backends, out-of-core folds,
 # autotune and live monitor belong to later slices of the port.  The
-# SPMC page pool (``allocator``) backs the serving engine's batch slots.
+# SPMC page pool (``allocator``) backs the serving engine's batch slots,
+# and the macro data-flow executor (``mdf``, paper Sec. 5) wraps the farm.
 from .spsc import EOS, Backoff, SPSCQueue
 from .lockq import LockQueue
 from .sched import (SCHEDULERS, CostModel, OnDemand, RoundRobin, Scheduler,
@@ -21,6 +22,7 @@ from .skeleton import (BACKENDS, GO_ON, AllToAll, EmitMany, Farm, FarmStats,
 from .graph import Accelerator, Graph, Net, Token, build
 from .farm import TaskFarm
 from .allocator import PagePool, PoolExhausted
+from .mdf import MDFExecutor, MDFTask
 
 __all__ = [
     "EOS", "Backoff", "SPSCQueue", "LockQueue",
@@ -36,5 +38,5 @@ __all__ = [
     "as_skeleton", "fuse", "walk_stats", "LoweringError", "lower",
     "ThreadProgram",
     "Accelerator", "Graph", "Net", "Token", "build",
-    "TaskFarm",
+    "TaskFarm", "MDFExecutor", "MDFTask",
 ]

@@ -68,7 +68,12 @@ class ServeEngine:
     """Continuous-batching engine over ``decode_step`` on ``device``
     (``None``: the card).  ``params`` defaults to ``init_params(cfg,
     seed)``.  The reference's ``slo=`` (an ``SLOMonitor``) waits for the
-    port of ``core/monitor.py``: anything but ``None`` raises."""
+    port of ``core/monitor.py``: anything but ``None`` raises.
+
+    The step feeds token ids only, so two families are refused here, at
+    construction: audio (the reference's step raises the same error) and
+    vlm (the reference's step carries no vision stream and fails on the
+    missing ``vision_embeds``)."""
 
     def __init__(self, cfg: ModelConfig, *, max_batch: int = 4,
                  max_len: int = 256, seed: int = 0, params=None,
@@ -77,6 +82,12 @@ class ServeEngine:
             raise NotImplementedError(
                 "slo= needs SLOMonitor, which comes with the port of "
                 "core/monitor.py (ROADMAP)")
+        if cfg.family == "audio":
+            raise NotImplementedError("audio serving uses frame embeddings")
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                "vlm serving: the decode step carries no vision stream "
+                "(batch['vision_embeds'])")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch

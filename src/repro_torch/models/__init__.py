@@ -1,11 +1,13 @@
-"""The port's model stack (counterpart of ``repro.models``): the dense,
-SSM and hybrid families, with ``prefill`` running the hand-written
-flash-attention and SSD kernels on the card."""
+"""The port's model stack (counterpart of ``repro.models``): every family
+of ``configs/`` (dense, moe, ssm, hybrid, vlm, audio), with ``prefill``
+running the hand-written flash-attention and SSD kernels on the card."""
 from .config import ModelConfig, active_param_count, param_count
 from .model import (decode_step, init_cache, init_params, init_params_spec,
                     prefill)
+from .moe import moe_apply, moe_init, router_aux_loss
 
 __all__ = [
     "ModelConfig", "param_count", "active_param_count",
     "init_params", "init_params_spec", "prefill", "decode_step", "init_cache",
+    "moe_apply", "moe_init", "router_aux_loss",
 ]

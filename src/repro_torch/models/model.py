@@ -1,28 +1,32 @@
-"""Unified decoder LM: the dense, SSM and hybrid families.
+"""Unified decoder LM covering all 10 assigned architectures.
 
 Counterpart of ``repro.models.model``.  One parameter tree — a dict with
 the reference's keys, shapes and stacked leading axes — and one forward,
-assembled from the block zoo according to ``cfg.layer_kinds()``:
+assembled from the block zoo (self-attention / dense-MLP / MoE /
+Mamba2-SSD / cross-attention) according to ``cfg.layer_kinds()``:
 
-  * dense  — phi3 & co: a stack of attention + SwiGLU blocks;
-  * ssm    — mamba2: a stack of Mamba2 blocks;
-  * hybrid — zamba2: groups of (attn_every-1) Mamba2 blocks + 1 attention
-             block whose parameters are *shared* across groups.
+  * uniform — dense, moe, ssm and audio: one stack of blocks;
+  * hybrid  — zamba2: groups of (attn_every-1) Mamba2 blocks + 1 attention
+              block whose parameters are *shared* across groups;
+  * vlm     — llama-3.2-vision: groups of (cross_attn_every-1) self-attention
+              blocks + 1 cross-attention block over the projected vision
+              stream.
 
 The stacks run as Python loops over the leading axes (the reference's
 ``lax.scan``).  ``prefill`` is where the hand-written kernels run on the
-card: every attention block of it goes through the flash-attention kernel
-and every Mamba2 block through the SSD kernel.  ``decode_step`` is plain
-PyTorch, as in the reference.  Caches are returned as new tensors; the
-inputs are never written.
+card: every attention block of it, self or cross, goes through the
+flash-attention kernel and every Mamba2 block through the SSD kernel.
+``decode_step`` is plain PyTorch, as in the reference.  Caches are
+returned as new tensors; the inputs are never written.
 
-Left for later slices of the port: the ``moe``, ``vlm`` and ``audio``
-families (ROADMAP §1 item 3), ``loss_fn`` (item 9, training) and the
-sharding specs (item 10, multi-GPU); there is one device.
+Left for later slices of the port: ``loss_fn`` (ROADMAP §1 item 10,
+training) and the sharding specs (item 11, multi-GPU); there is one
+device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import itertools
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -31,26 +35,20 @@ from .attention import attention, decode_attention
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, embed_init, init_device,
                      rms_norm, swiglu)
+from .moe import moe_apply, moe_init
 from .ssm import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
 __all__ = ["init_params", "init_params_spec", "forward_hidden", "prefill", "decode_step",
            "init_cache", "segment_counts", "SUPPORTED_FAMILIES"]
 
 Params = Dict[str, Any]
-SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
-_LATER = {"moe": "ROADMAP §1 item 3 (moe.py; its a2a/ring backends with "
-                 "multi-GPU, item 10)",
-          "vlm": "ROADMAP §1 item 3 (the cross-attention family)",
-          "audio": "ROADMAP §1 item 3 (EnCodec frames and codebook heads)"}
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+_UNIFORM = ("dense", "moe", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_LATER[cfg.family]}")
     if cfg.family not in SUPPORTED_FAMILIES:
-        raise ValueError(cfg.family)
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name})")
 
 
 # ==========================================================================
@@ -79,7 +77,8 @@ def _kv_heads_alloc(cfg: ModelConfig) -> int:
 # ==========================================================================
 # init
 # ==========================================================================
-def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params:
+def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                     cross: bool = False) -> Params:
     d, hp, kv, dh = cfg.d_model, cfg.n_heads_padded, _kv_heads_alloc(cfg), cfg.hdim
     dev, f32, dt = init_device(gen), torch.float32, cfg.param_dtype
     p = {
@@ -89,7 +88,10 @@ def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params
         "wv": dense_init(gen, (d, kv, dh), d, dt),
         "wo": dense_init(gen, (hp, dh, d), hp * dh, dt),
     }
-    if cfg.d_ff:
+    if cfg.family == "moe" and not cross:
+        p["norm2"] = torch.ones((d,), dtype=f32, device=dev)
+        p["moe"] = moe_init(gen, cfg)
+    elif cfg.d_ff:
         p["norm2"] = torch.ones((d,), dtype=f32, device=dev)
         p["mlp"] = {
             "w_gate": dense_init(gen, (d, cfg.d_ff), d, dt),
@@ -99,38 +101,72 @@ def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params
     return p
 
 
-def _stack(trees):
-    """A list of equal trees → one tree of leaves stacked on a new axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stacked(build_one: Callable[[Optional[torch.Generator]], Any],
+             gen: Optional[torch.Generator], *lead: int):
+    """``build_one(gen)``'s tree with every leaf stacked on the leading
+    axes ``lead``.  Each stacked leaf is allocated once and filled one
+    index at a time, in row-major order, so initialisation peaks at the
+    stack plus one tree (not twice the stack), and the draws come in the
+    same order on every device and in every dtype."""
+    dev = init_device(gen)
+    out = _map(lambda t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
+                                     device=dev), build_one(None))
+    if gen is not None:
+        for idx in itertools.product(*map(range, lead)):
+            _fill(out, build_one(gen), idx)
+    return out
+
+
+def _fill(dst, src, idx) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _fill(dst[k], src[k], idx)
+    else:
+        dst[idx].copy_(src)
 
 
 def _index(tree, *idx):
     """The tree's slice at leading indices ``idx`` (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, *idx) for k, v in tree.items()}
-    return tree[idx]
+    return _map(lambda t: t[idx], tree)
 
 
 def _build_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
     segs = segment_counts(cfg)
+    V, d, dt = cfg.vocab_padded, cfg.d_model, cfg.param_dtype
     params: Params = {
-        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, cfg.param_dtype),
-        "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+        "embed": embed_init(gen, V, d, dt),
+        "final_norm": torch.ones((d,), dtype=torch.float32,
                                  device=init_device(gen)),
-        "lm_head": embed_init(gen, cfg.vocab_padded, cfg.d_model, cfg.param_dtype),
     }
-    if cfg.family == "hybrid":
-        g, inner = segs["groups"], segs["ssm_per_group"]
-        params["ssm"] = _stack([_stack([ssm_init(gen, cfg) for _ in range(inner)])
-                                for _ in range(g)])
-        params["shared_attn"] = _attn_block_init(gen, cfg)   # ONE block, reused
-    elif cfg.family == "ssm":
-        params["blocks"] = _stack([ssm_init(gen, cfg) for _ in range(segs["blocks"])])
+    if cfg.n_codebooks:
+        params["lm_head"] = _stacked(lambda g: embed_init(g, V, d, dt), gen,
+                                     cfg.n_codebooks)
     else:
-        params["blocks"] = _stack([_attn_block_init(gen, cfg)
-                                   for _ in range(segs["blocks"])])
+        params["lm_head"] = embed_init(gen, V, d, dt)
+    if cfg.family == "hybrid":
+        params["ssm"] = _stacked(lambda g: ssm_init(g, cfg), gen,
+                                 segs["groups"], segs["ssm_per_group"])
+        params["shared_attn"] = _attn_block_init(gen, cfg)   # ONE block, reused
+    elif cfg.family == "vlm":
+        g, inner = segs["groups"], segs["self_per_group"]
+        params["self"] = _stacked(lambda gn: _attn_block_init(gn, cfg), gen,
+                                  g, inner)
+        params["cross"] = _stacked(
+            lambda gn: _attn_block_init(gn, cfg, cross=True), gen, g)
+        params["vision_proj"] = dense_init(gen, (cfg.vision_dim, d),
+                                           cfg.vision_dim, dt)
+    elif cfg.family == "ssm":
+        params["blocks"] = _stacked(lambda g: ssm_init(g, cfg), gen,
+                                    segs["blocks"])
+    else:
+        params["blocks"] = _stacked(lambda g: _attn_block_init(g, cfg), gen,
+                                    segs["blocks"])
     return params
 
 
@@ -147,12 +183,7 @@ def init_params_spec(cfg: ModelConfig) -> Params:
     """The tree of ``init_params`` as ``(shape, dtype)`` leaves, drawn
     nowhere (on the ``meta`` device)."""
     _check_family(cfg)
-
-    def spec(tree):
-        if isinstance(tree, dict):
-            return {k: spec(v) for k, v in tree.items()}
-        return tuple(tree.shape), tree.dtype
-    return spec(_build_params(cfg, None))
+    return _map(lambda t: (tuple(t.shape), t.dtype), _build_params(cfg, None))
 
 
 # ==========================================================================
@@ -172,15 +203,24 @@ def _head_mask(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
 
 
 def _attn_core(p, x, cfg: ModelConfig, *, positions, mode: str,
-               kv_cache=None, cache_len=None, rolling=False, start_pos=None):
-    """Shared attention path. Returns (delta, new_kv_cache or None)."""
+               kv_cache=None, cache_len=None, rolling=False, ext_kv=None,
+               start_pos=None):
+    """Shared attention path. Returns (delta, new_kv_cache or None).
+
+    With ``ext_kv`` (cross-attention) k and v are the projected vision
+    stream's: q takes no RoPE, prefill attends every vision row
+    (non-causal), decode attends them all, and no cache is returned."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if mode == "decode":
+    if ext_kv is not None:
+        k, v = ext_kv
+    else:
+        k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if mode == "decode" and ext_kv is None:
         k_cache, v_cache = kv_cache
         T = k_cache.shape[1]
         # the reference's dynamic_update_slice clamps the slot to T - 1
@@ -192,11 +232,15 @@ def _attn_core(p, x, cfg: ModelConfig, *, positions, mode: str,
         attn = decode_attention(q, k_cache, v_cache, cache_len + 1,
                                 window=cfg.sliding_window, rolling=rolling,
                                 start_pos=start_pos)
+    elif mode == "decode":
+        attn = decode_attention(q, k, v, k.shape[1])
     else:
-        attn = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                         impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk,
-                         kv_chunk=cfg.attn_kv_chunk, causal_skip=cfg.causal_skip)
-        new_cache = (k, v) if mode == "prefill" else None
+        attn = attention(q, k, v, causal=ext_kv is None,
+                         window=cfg.sliding_window, impl=cfg.attn_impl,
+                         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                         causal_skip=cfg.causal_skip)
+        if ext_kv is None and mode == "prefill":
+            new_cache = (k, v)
     mask = _head_mask(cfg, x.device)
     if mask is not None:
         attn = attn * mask[None, None, :, None]
@@ -205,20 +249,27 @@ def _attn_core(p, x, cfg: ModelConfig, *, positions, mode: str,
 
 
 def _ffn_part(p, x, cfg: ModelConfig):
-    """MLP sub-block (with pre-norm + residual)."""
+    """MLP or MoE sub-block (with pre-norm + residual).  Returns (x, aux):
+    the MoE router's load-balancing loss, None without one."""
+    if "moe" in p:
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        delta, aux = moe_apply(h, p["moe"], cfg)
+        return x + delta, aux
     if "mlp" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         m = p["mlp"]
-        return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
-    return x
+        return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+    return x, None
 
 
 def _attn_block(p, x, cfg, *, positions, mode, kv_cache=None, cache_len=None,
-                rolling=False, start_pos=None):
+                rolling=False, ext_kv=None, start_pos=None):
     delta, new_cache = _attn_core(p, x, cfg, positions=positions, mode=mode,
                                   kv_cache=kv_cache, cache_len=cache_len,
-                                  rolling=rolling, start_pos=start_pos)
-    return _ffn_part(p, x + delta, cfg), new_cache
+                                  rolling=rolling, ext_kv=ext_kv,
+                                  start_pos=start_pos)
+    x, aux = _ffn_part(p, x + delta, cfg)
+    return x, aux, new_cache
 
 
 def _ssm_block(p, x, cfg, mode, cache):
@@ -235,23 +286,37 @@ def _ssm_block(p, x, cfg, mode, cache):
 # ==========================================================================
 # forward
 # ==========================================================================
+def _vision_kv(params, vision_embeds, cfg: ModelConfig):
+    """Project the (stub) vision embeddings once; per-cross-layer K/V are
+    computed from this shared stream inside each cross block."""
+    return (vision_embeds @ params["vision_proj"]).to(params["vision_proj"].dtype)
+
+
 def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    mode: str = "train", positions=None, cache=None,
-                   cache_len=None, start_pos=None):
-    """Run all blocks. x: (B,S,d) embeddings. Returns (x, new_cache)."""
+                   cache_len=None, vision_stream=None, start_pos=None):
+    """Run all blocks. x: (B,S,d) embeddings.  Returns (x, aux, new_cache):
+    aux is the sum of the MoE blocks' router losses (f32, 0 without)."""
     _check_family(cfg)
     rolling = cfg.sliding_window is not None and mode == "decode"
     keep = mode in ("decode", "prefill")
+    decode = mode == "decode"
+    auxes = []
     new_cache: Dict[str, Any] = {}
 
-    if cfg.family == "dense":
+    def block(p, x, **kw):
+        x, aux, nc = _attn_block(p, x, cfg, positions=positions, mode=mode,
+                                 start_pos=start_pos, **kw)
+        if aux is not None:
+            auxes.append(aux)
+        return x, nc
+
+    if cfg.family in _UNIFORM:
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            kvc = (cache["k"][i], cache["v"][i]) if mode == "decode" else None
-            x, nc = _attn_block(_index(params["blocks"], i), x, cfg,
-                                positions=positions, mode=mode, kv_cache=kvc,
-                                cache_len=cache_len, rolling=rolling,
-                                start_pos=start_pos)
+            kvc = (cache["k"][i], cache["v"][i]) if decode else None
+            x, nc = block(_index(params["blocks"], i), x, kv_cache=kvc,
+                          cache_len=cache_len, rolling=rolling)
             if nc is not None:
                 ks.append(nc[0])
                 vs.append(nc[1])
@@ -261,8 +326,7 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     elif cfg.family == "ssm":
         hs, convs = [], []
         for i in range(cfg.n_layers):
-            c = {"h": cache["h"][i], "conv": cache["conv"][i]} \
-                if mode == "decode" else None
+            c = {"h": cache["h"][i], "conv": cache["conv"][i]} if decode else None
             x, nc = _ssm_block(_index(params["blocks"], i), x, cfg, mode, c)
             if nc is not None:
                 hs.append(nc["h"])
@@ -270,7 +334,7 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if keep:
             new_cache = {"h": torch.stack(hs), "conv": torch.stack(convs)}
 
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         segs = segment_counts(cfg)
         shared_p = params["shared_attn"]
         clen = cache_len if cache_len is not None else 0
@@ -279,15 +343,13 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             g_h, g_conv = [], []
             for ii in range(segs["ssm_per_group"]):
                 c = {"h": cache["h"][gi, ii], "conv": cache["conv"][gi, ii]} \
-                    if mode == "decode" else None
+                    if decode else None
                 x, nc = _ssm_block(_index(params["ssm"], gi, ii), x, cfg, mode, c)
                 if nc is not None:
                     g_h.append(nc["h"])
                     g_conv.append(nc["conv"])
-            kvc = (cache["k"][gi], cache["v"][gi]) if mode == "decode" else None
-            x, nc = _attn_block(shared_p, x, cfg, positions=positions,
-                                mode=mode, kv_cache=kvc, cache_len=clen,
-                                start_pos=start_pos)
+            kvc = (cache["k"][gi], cache["v"][gi]) if decode else None
+            x, nc = block(shared_p, x, kv_cache=kvc, cache_len=clen)
             if keep:
                 hs.append(torch.stack(g_h))
                 convs.append(torch.stack(g_conv))
@@ -297,49 +359,96 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = {"h": torch.stack(hs), "conv": torch.stack(convs),
                          "k": torch.stack(ks), "v": torch.stack(vs)}
 
+    else:  # vlm
+        segs = segment_counts(cfg)
+        clen = cache_len if cache_len is not None else 0
+        ks, vs = [], []
+        for gi in range(segs["groups"]):
+            g_k, g_v = [], []
+            for ii in range(segs["self_per_group"]):
+                kvc = (cache["k"][gi, ii], cache["v"][gi, ii]) if decode else None
+                x, nc = block(_index(params["self"], gi, ii), x, kv_cache=kvc,
+                              cache_len=clen)
+                if nc is not None:
+                    g_k.append(nc[0])
+                    g_v.append(nc[1])
+            # cross-attention over the vision stream, projected per block
+            pc = _index(params["cross"], gi)
+            kc = torch.einsum("bpd,dhk->bphk", vision_stream, pc["wk"])
+            vc = torch.einsum("bpd,dhk->bphk", vision_stream, pc["wv"])
+            x, _ = block(pc, x, ext_kv=(kc, vc))
+            if keep:
+                ks.append(torch.stack(g_k))
+                vs.append(torch.stack(g_v))
+        if keep:
+            new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, new_cache
+    aux = sum(auxes) if auxes else torch.zeros((), dtype=torch.float32,
+                                               device=x.device)
+    return x, aux, new_cache
 
 
 # ==========================================================================
 # entry points
 # ==========================================================================
-def _embed(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def _embed_batch(params, batch, cfg: ModelConfig):
+    """(x (B,S,d) in the working dtype, the projected vision stream or
+    None): audio reads precomputed frame embeddings, vlm also projects
+    ``batch["vision_embeds"]`` (the stub frontends)."""
     _check_family(cfg)
-    return params["embed"][batch["tokens"].long()]
+    if cfg.family == "audio":
+        x = batch["frames"].to(cfg.param_dtype)
+    else:
+        x = params["embed"][batch["tokens"].long()]
+    vision = None
+    if cfg.family == "vlm":
+        vision = _vision_kv(params, batch["vision_embeds"].to(cfg.param_dtype), cfg)
+    return x, vision
+
+
+def _logits(last: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
+    """(B, V) logits, or (B, n_codebooks, V) for audio; f32."""
+    if cfg.n_codebooks:
+        return torch.stack([_logits_full(last, params["lm_head"][cb], cfg)
+                            for cb in range(cfg.n_codebooks)], dim=1)
+    return _logits_full(last, params["lm_head"], cfg)
 
 
 def prefill(params: Params, batch, cfg: ModelConfig):
     """Forward pass that also returns the populated cache + last logits.
 
-    batch: {"tokens": (B,S) int}.  Returns (logits (B,V) f32, cache)."""
-    x = _embed(params, batch, cfg)
+    batch: {"tokens": (B,S) int} ({"frames": (B,S,d)} for audio; vlm adds
+    {"vision_embeds": (B,P,vision_dim)}).  Returns (logits (B,V) f32, or
+    (B,n_codebooks,V) for audio, cache)."""
+    x, vision = _embed_batch(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    x, new_cache = forward_hidden(params, x, cfg, mode="prefill",
-                                  positions=positions)
+    x, _, new_cache = forward_hidden(params, x, cfg, mode="prefill",
+                                     positions=positions, vision_stream=vision)
     if cfg.sliding_window is not None and "k" in new_cache:
         w = min(cfg.sliding_window, S)
         new_cache["k"] = new_cache["k"][:, :, -w:]
         new_cache["v"] = new_cache["v"][:, :, -w:]
-    return _logits_full(x[:, -1], params["lm_head"], cfg), new_cache
+    return _logits(x[:, -1], params, cfg), new_cache
 
 
 def decode_step(params: Params, batch, cache, cache_len: int, cfg: ModelConfig):
     """One token for every sequence in the batch.
 
-    batch: {"tokens": (B,1)} and optionally {"start_pos": (B,)};
+    batch: {"tokens": (B,1)} ({"frames": (B,1,d)} for audio; vlm adds
+    {"vision_embeds"}) and optionally {"start_pos": (B,)};
     cache_len: int — valid length before this step.
-    Returns (logits (B,V) f32, new_cache)."""
-    x = _embed(params, batch, cfg)
+    Returns (logits as ``prefill``'s, new_cache)."""
+    x, vision = _embed_batch(params, batch, cfg)
     cache_len = int(cache_len)
     positions = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,
                            device=x.device)
-    x, new_cache = forward_hidden(params, x, cfg, mode="decode",
-                                  positions=positions, cache=cache,
-                                  cache_len=cache_len,
-                                  start_pos=batch.get("start_pos"))
-    return _logits_full(x[:, -1], params["lm_head"], cfg), new_cache
+    x, _, new_cache = forward_hidden(params, x, cfg, mode="decode",
+                                     positions=positions, cache=cache,
+                                     cache_len=cache_len, vision_stream=vision,
+                                     start_pos=batch.get("start_pos"))
+    return _logits(x[:, -1], params, cfg), new_cache
 
 
 # ==========================================================================
@@ -359,11 +468,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    one = init_ssm_cache(batch, cfg, dt, dev)
-    if cfg.family == "dense":
+    if cfg.family in _UNIFORM:
         n = segs["blocks"]
         return {"k": zeros(n, batch, T, kv, cfg.hdim),
                 "v": zeros(n, batch, T, kv, cfg.hdim)}
+    if cfg.family == "vlm":
+        g, inner = segs["groups"], segs["self_per_group"]
+        return {"k": zeros(g, inner, batch, T, kv, cfg.hdim),
+                "v": zeros(g, inner, batch, T, kv, cfg.hdim)}
+    one = init_ssm_cache(batch, cfg, dt, dev)
     if cfg.family == "ssm":
         n = segs["blocks"]
         return {"h": zeros(n, *one["h"].shape, dtype=torch.float32),

@@ -4,7 +4,9 @@ their plain PyTorch version on the card, exactly, and the farm search
 launching them once per task or once per chunk of the database; the flash-attention kernels (bf16: wgmma with
 TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernels
 (five passes per call) against their plain versions, on their edge cases;
-the Zamba2 smoke prefill launching both.  They carry the ``gpu`` marker
+the Zamba2 smoke prefill launching both; the MoE grouped dispatch against
+its dense oracle, and the smoke prefill of the moe, vlm and audio families
+through the FA kernel.  They carry the ``gpu`` marker
 and skip where there is no card.  This file imports neither jax nor the
 reference package, so it runs on a machine that has only the port's
 dependencies:
@@ -354,6 +356,92 @@ def test_zamba2_smoke_prefill_runs_the_kernels(dev, dtype):
     assert ssd.launch_count() - ssd0 == 10
     assert torch.isfinite(logits).all()
     want, _ = prefill(_to(params, "cpu"), {"tokens": toks.cpu()}, cfg)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    scale = max(1.0, float(want.abs().max()))
+    assert float((logits.cpu() - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,router", [("mixtral-8x7b", "seeded"),
+                                         ("mixtral-8x7b", "all-to-one"),
+                                         ("kimi-k2-1t-a32b", "seeded")])
+def test_moe_grouped_dispatch_equals_dense_on_card(dev, arch, router, dtype):
+    """The dropless grouped dispatch against the dense oracle on the card,
+    on the same routing: 1e-5 of the scale in f32 (sums in another order,
+    TF32 off), one bf16 ulp of the scale (1e-2) in bf16.  ``all-to-one``
+    sends every token's first choice to expert 3."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].smoke().replace(dtype=dtype)
+    params = moe.moe_init(torch.Generator(device=dev).manual_seed(1), cfg)
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    if router == "all-to-one":
+        x[..., 0] = 5.0
+        params["router"][0, 3] = 20.0
+    tokens = x.to(cfg.param_dtype).reshape(-1, cfg.d_model)
+    gates, ids, _ = moe._route(tokens, params["router"], cfg.top_k)
+    if router == "all-to-one":
+        assert bool((ids[:, 0] == 3).all())
+    grouped = moe._moe_grouped(tokens, params, gates, ids, cfg)
+    dense = moe._moe_dense(tokens, params, gates, ids, cfg)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    scale = max(1.0, float(dense.abs().max()))
+    assert float((grouped - dense).abs().max()) <= tol * scale
+
+
+# (arch, config overrides, FA launches per smoke prefill): mixtral's window
+# of 16 at S = 32; llama-vision's 8 self blocks and 2 cross blocks over 8
+# vision rows (non-causal); musicgen with its 4 heads padded to 8 and masked.
+NEW_FAMILIES = [("mixtral-8x7b", {}, 2),
+                ("llama-3.2-vision-90b", {}, 10),
+                ("musicgen-medium", {"pad_heads_to": 8}, 2)]
+
+
+def _family_batch(cfg, B, S, dev):
+    rng = np.random.default_rng(0)
+    if cfg.family == "audio":
+        b = {"frames": torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))}
+    else:
+        b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision_patches, cfg.vision_dim)).astype(np.float32))
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,over,n_fa", NEW_FAMILIES)
+def test_new_family_smoke_prefill_runs_fa_kernel(dev, arch, over, n_fa, dtype):
+    """One smoke prefill of each family of this slice on the card launches
+    the FA kernel once per attention block (self and cross) and the SSD
+    kernel never, and agrees with the plain path on the CPU with the same
+    weights: 1e-4 of the logits' scale in f32, 5e-2 in bf16 (as the Zamba2
+    case above).  The bf16 moe model is held to the counts and to finite
+    logits only: bf16 activations rounded at other points can move a
+    near-tied token to another expert, which changes its output by a whole
+    expert's share; its routing and dispatch are
+    held in f32 here and in bf16 by the grouped-against-dense test."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].smoke().replace(dtype=dtype, **over)
+    params = init_params(cfg, 0, device=dev)
+    batch = _family_batch(cfg, 2, 32, dev)
+    fa0, ssd0 = fa.launch_count(), ssd.launch_count()
+    logits, cache = prefill(params, batch, cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_count() - fa0 == n_fa
+    assert ssd.launch_count() == ssd0
+    assert torch.isfinite(logits).all()
+    if cfg.family == "moe" and dtype == "bfloat16":
+        return
+    want, _ = prefill(_to(params, "cpu"), _to(batch, "cpu"), cfg)
     tol = 1e-4 if dtype == "float32" else 5e-2
     scale = max(1.0, float(want.abs().max()))
     assert float((logits.cpu() - want).abs().max()) <= tol * scale

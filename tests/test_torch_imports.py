@@ -14,6 +14,7 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
 PORT_MODULES = [
     "repro_torch", "repro_torch.core", "repro_torch.core.allocator",
+    "repro_torch.core.mdf", "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ssd_scan", "repro_torch.convert",
@@ -85,7 +86,8 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["spsc", "lockq", "obs", "sched",
-                                  "skeleton", "graph", "farm", "allocator"])
+                                  "skeleton", "graph", "farm", "allocator",
+                                  "mdf"])
 def test_runtime_copies_stay_plain_python(name):
     """The runtime copies import neither torch nor numpy: like the
     reference's, they are plain Python."""

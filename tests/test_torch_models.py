@@ -2,9 +2,12 @@
 
 Parameters are drawn by the reference's ``init_params`` and carried across
 with ``convert.params_from_numpy``, so both packages run the same weights;
-token ids are drawn with numpy.  The families of this slice are dense
-(phi3), ssm (mamba2) and hybrid (zamba2), at their ``smoke()`` sizes.
-Tolerances are stated beside each check.
+token ids (audio: frame embeddings; vlm: vision embeddings too) are drawn
+with numpy.  Every family runs at its ``smoke()`` size: dense (phi3,
+deepseek-coder, starcoder2, mistral-nemo), ssm (mamba2), hybrid (zamba2),
+moe (mixtral with its sliding window, kimi-k2 with its shared expert), vlm
+(llama-3.2-vision) and audio (musicgen).  Tolerances are stated beside
+each check.
 """
 import dataclasses
 
@@ -29,7 +32,13 @@ from repro_torch.models import (decode_step, init_cache, init_params,
                                 init_params_spec, prefill)
 
 CPU = "cpu"
-SLICE = ["zamba2-2.7b", "mamba2-130m", "phi3-mini-3.8b"]
+SLICE = ["zamba2-2.7b", "mamba2-130m", "phi3-mini-3.8b", "deepseek-coder-33b",
+         "starcoder2-7b", "mistral-nemo-12b", "mixtral-8x7b", "kimi-k2-1t-a32b",
+         "llama-3.2-vision-90b", "musicgen-medium"]
+# Padded heads (masked) and vocab (sliced): the smoke configs pad nothing.
+PADDED = {"starcoder2-7b": dict(pad_heads_to=8, pad_vocab_to=384),
+          "zamba2-2.7b": dict(pad_heads_to=8),
+          "musicgen-medium": dict(pad_heads_to=8)}
 
 
 def _close_scaled(got, want, tol, what=""):
@@ -41,9 +50,9 @@ def _close_scaled(got, want, tol, what=""):
     assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
 
 
-def _pair(arch, dtype="float32"):
-    jcfg = JARCHS[arch].smoke().replace(dtype=dtype)
-    cfg = ARCHS[arch].smoke().replace(dtype=dtype)
+def _pair(arch, dtype="float32", **over):
+    jcfg = JARCHS[arch].smoke().replace(dtype=dtype, **over)
+    cfg = ARCHS[arch].smoke().replace(dtype=dtype, **over)
     jp = jinit(jcfg, jax.random.PRNGKey(0))
     tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device=CPU)
     return jcfg, cfg, jp, tp
@@ -54,18 +63,44 @@ def _tokens(cfg, B, S, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", SLICE)
-def test_prefill_and_decode_match_jax(arch):
-    """Same weights, same tokens, f32 on both sides: the prefill logits,
-    every cache leaf, then three decode steps' logits and cache.  1e-4 of
-    each leaf's scale: f32 sums in another order through the smoke model's
-    layers (the SSM state carries them across every chunk)."""
-    jcfg, cfg, jp, tp = _pair(arch)
-    toks = _tokens(cfg, 2, 32)
-    jl, jc = jax.jit(lambda p, b: jprefill(p, b, jcfg))(
-        jp, {"tokens": jnp.asarray(toks)})
-    tl, tc = prefill(tp, {"tokens": torch.from_numpy(toks)}, cfg)
-    assert tl.shape == (2, cfg.vocab_size) and tl.dtype == torch.float32
+def _batch(cfg, B, S, seed=0):
+    """The model's inputs as numpy: token ids, or frame embeddings for
+    audio; vlm adds the vision embeddings."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        b = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)}
+    else:
+        b = {"tokens": _tokens(cfg, B, S, seed)}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = rng.standard_normal(
+            (B, cfg.vision_patches, cfg.vision_dim)).astype(np.float32)
+    return b
+
+
+def _step(batch, t):
+    """The inputs of position t (the vision stream goes with every step)."""
+    return {k: v if k == "vision_embeds" else v[:, t:t + 1] for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _logits_shape(cfg, B):
+    return (B, cfg.n_codebooks, cfg.vocab_size) if cfg.n_codebooks else \
+        (B, cfg.vocab_size)
+
+
+def _prefill_and_decode_match(arch, **over):
+    jcfg, cfg, jp, tp = _pair(arch, **over)
+    batch = _batch(cfg, 2, 32)
+    jl, jc = jax.jit(lambda p, b: jprefill(p, b, jcfg))(jp, _jnp(batch))
+    tl, tc = prefill(tp, _torch(batch), cfg)
+    assert tuple(tl.shape) == _logits_shape(cfg, 2) and tl.dtype == torch.float32
     _close_scaled(tl, jl, 1e-4, "prefill logits")
     assert sorted(tc) == sorted(jc)
     for k in tc:
@@ -77,12 +112,57 @@ def test_prefill_and_decode_match_jax(arch):
         {k: v.shape for k, v in jcc.items()}
     jstep = jax.jit(lambda p, b, c, l: jdecode(p, b, c, l, jcfg))
     for t in range(3):
-        step = toks[:, t:t + 1]
-        jl, jcc = jstep(jp, {"tokens": jnp.asarray(step)}, jcc, jnp.int32(t))
-        tl, tcc = decode_step(tp, {"tokens": torch.from_numpy(step)}, tcc, t, cfg)
+        step = _step(batch, t)
+        jl, jcc = jstep(jp, _jnp(step), jcc, jnp.int32(t))
+        tl, tcc = decode_step(tp, _torch(step), tcc, t, cfg)
         _close_scaled(tl, jl, 1e-4, f"decode logits step {t}")
     for k in tcc:
         _close_scaled(tcc[k], jcc[k], 1e-4, f"decode cache {k}")
+
+
+@pytest.mark.parametrize("arch", SLICE)
+def test_prefill_and_decode_match_jax(arch):
+    """Same weights, same inputs, f32 on both sides: the prefill logits,
+    every cache leaf, then three decode steps' logits and cache.  1e-4 of
+    each leaf's scale: f32 sums in another order through the smoke model's
+    layers (the SSM state carries them across every chunk)."""
+    _prefill_and_decode_match(arch)
+
+
+@pytest.mark.parametrize("arch", sorted(PADDED))
+def test_padded_heads_and_vocab_match_jax(arch):
+    """The same check with attention heads padded (and masked) and, for
+    starcoder2, the vocabulary padded (and sliced off the logits): 1e-4 of
+    the scale, as above."""
+    _prefill_and_decode_match(arch, **PADDED[arch])
+
+
+@pytest.mark.parametrize("S", [32, 12])
+def test_sliding_window_prefill_then_decode_matches_jax(S):
+    """Mixtral's window (16 at smoke size): prefill S tokens, then 3 decode
+    steps from the prefill's rolling cache.  At S = 32 the steps run past
+    the window and evict the oldest rows.  At S = 12 (< window) the
+    reference's own rule is at fault: its prefill keeps the last
+    min(window, S) rows and ``decode_step`` writes at ``cache_len % T``,
+    which here overwrites a row still inside the window, so prefill(S) plus
+    a step is not prefill(S + 1).  The port keeps that rule for parity, and
+    this case pins it.  1e-4 of the scale, as above."""
+    jcfg, cfg, jp, tp = _pair("mixtral-8x7b")
+    assert cfg.sliding_window == 16
+    batch = _batch(cfg, 2, S + 3, seed=4)
+    head = {k: v[:, :S] for k, v in batch.items()}
+    jl, jc = jprefill(jp, _jnp(head), jcfg)
+    tl, tc = prefill(tp, _torch(head), cfg)
+    _close_scaled(tl, jl, 1e-4, "prefill logits")
+    assert tc["k"].shape[2] == min(S, 16)
+    jstep = jax.jit(lambda p, b, c, l: jdecode(p, b, c, l, jcfg))
+    for t in range(S, S + 3):
+        step = _step(batch, t)
+        jl, jc = jstep(jp, _jnp(step), jc, jnp.int32(t))
+        tl, tc = decode_step(tp, _torch(step), tc, t, cfg)
+        _close_scaled(tl, jl, 1e-4, f"decode logits at {t}")
+    for k in tc:
+        _close_scaled(tc[k], jc[k], 1e-4, f"decode cache {k}")
 
 
 @pytest.mark.parametrize("arch", SLICE)
@@ -117,45 +197,67 @@ def test_configs_and_param_counts_match_the_reference(arch):
         dataclasses.asdict(JARCHS[arch].smoke())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-coder-33b", "mamba2-130m",
-                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_arch_decode_runs(arch):
-    """The port's form of tests/test_models.py:54-72: one decode step on
-    the smoke model gives finite logits and changes the cache."""
+    """The port's form of tests/test_models.py:54-72, for every config:
+    prefill and one decode step on the smoke model give finite logits of
+    the right shape, and the step changes the cache."""
     cfg = ARCHS[arch].smoke()
     params = init_params(cfg, 0, device=CPU)
+    batch = _torch(_batch(cfg, 2, 8))
+    logits, _ = prefill(params, batch, cfg)
+    assert tuple(logits.shape) == _logits_shape(cfg, 2)
+    assert torch.isfinite(logits).all()
     cache = init_cache(cfg, 2, 20, device=CPU)
-    toks = torch.from_numpy(_tokens(cfg, 2, 1))
-    logits, cache2 = decode_step(params, {"tokens": toks}, cache, 0, cfg)
+    logits, cache2 = decode_step(params, _step(batch, 0), cache, 0, cfg)
+    assert tuple(logits.shape) == _logits_shape(cfg, 2)
     assert torch.isfinite(logits).all()
     diff = sum(float((a.float() - b.float()).abs().sum())
                for a, b in zip(cache.values(), cache2.values()))
     assert diff > 0
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b", "mixtral-8x7b",
+                                  "llama-3.2-vision-90b", "musicgen-medium"])
 def test_decode_matches_full_forward(arch):
-    """The port's form of tests/test_models.py:75-90 (and on zamba2):
-    step-by-step decode over a prompt == the prefill's last logits, bf16
-    weights as there, at its 2e-2."""
+    """The port's form of tests/test_models.py:75-90 (and on zamba2 and
+    the moe, vlm and audio families): step-by-step decode over a prompt ==
+    the prefill's last logits, bf16 weights as there, at its 2e-2."""
     cfg = ARCHS[arch].smoke()
     params = init_params(cfg, 0, device=CPU)
     S = 16 if cfg.family == "hybrid" else 12     # zamba2 smoke: chunk 8
-    toks = torch.from_numpy(_tokens(cfg, 1, S, seed=5))
-    logits_full, _ = prefill(params, {"tokens": toks}, cfg)
+    batch = _torch(_batch(cfg, 1, S, seed=5))
+    logits_full, _ = prefill(params, batch, cfg)
     cache = init_cache(cfg, 1, S + 2, device=CPU)
     for t in range(S):
-        logits_step, cache = decode_step(params, {"tokens": toks[:, t:t + 1]},
-                                         cache, t, cfg)
+        logits_step, cache = decode_step(params, _step(batch, t), cache, t, cfg)
     torch.testing.assert_close(logits_step, logits_full, atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama-3.2-vision-90b",
-                                  "musicgen-medium"])
-def test_later_families_raise(arch):
-    cfg = ARCHS[arch].smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, 0, device=CPU)
+def test_unknown_family_raises():
+    cfg = ARCHS["phi3-mini-3.8b"].smoke().replace(family="diffusion")
+    for fn in (lambda: init_params(cfg, 0, device=CPU), lambda: init_params_spec(cfg),
+               lambda: init_cache(cfg, 1, 8, device=CPU)):
+        with pytest.raises(ValueError, match="unknown model family"):
+            fn()
+
+
+def test_stacked_init_draws_in_the_same_order_in_every_dtype():
+    """The f32 model is the bf16 model's draws unrounded: every bf16 leaf
+    is its f32 counterpart rounded (the consistency checks on the card
+    rely on this), and the stacked leaves are filled, not left empty."""
+    for arch in ("mixtral-8x7b", "llama-3.2-vision-90b", "zamba2-2.7b"):
+        cfg = ARCHS[arch].smoke()
+        bf = dict(convert._flat(init_params(cfg, 7, device=CPU)))
+        f32 = dict(convert._flat(init_params(cfg.replace(dtype="float32"), 7,
+                                             device=CPU)))
+        assert bf.keys() == f32.keys()
+        for k in bf:
+            assert torch.equal(bf[k], f32[k].to(bf[k].dtype)), (arch, k)
+            assert bool(torch.isfinite(f32[k]).all()), (arch, k)
+        leaf = next(v for k, v in f32.items()
+                    if k.startswith(("blocks/", "self/", "ssm/")) and v.dim() > 3)
+        assert not torch.equal(leaf[0], leaf[-1])       # distinct draws per layer
 
 
 def _small_qkv():

@@ -3,7 +3,8 @@
 The port's form of tests/test_runtime.py:164-205 (order and isolation,
 resume after a truncated run, recycled slots), and the port's
 ``ServeEngine`` against the reference's with the same converted weights:
-the same greedy tokens per request.
+the same greedy tokens per request (dense, hybrid and moe), and the same
+refusal of audio (and, at construction, of vlm).
 """
 import jax
 import numpy as np
@@ -74,7 +75,31 @@ def test_serve_engine_refuses_slo_until_monitor_is_ported():
         ServeEngine(ARCHS["phi3-mini-3.8b"].smoke(), device=CPU, slo=object())
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b"])
+def test_serve_engine_refuses_audio_like_the_reference():
+    """The step feeds token ids: audio is refused by both engines (the
+    reference's at its first step, the port's at construction)."""
+    cfg, jcfg = ARCHS["musicgen-medium"].smoke(), JARCHS["musicgen-medium"].smoke()
+    jeng = JServeEngine(jcfg, max_batch=2, max_len=32)
+    jeng.submit(JRequest(rid=0, prompt=[1, 2], max_new=2))
+    with pytest.raises(NotImplementedError, match="audio serving uses frame embeddings"):
+        jeng.run()
+    with pytest.raises(NotImplementedError, match="audio serving uses frame embeddings"):
+        ServeEngine(cfg, device=CPU)
+
+
+def test_serve_engine_refuses_vlm_without_a_vision_stream():
+    """The reference's step carries no vision embeddings, so its vlm
+    serving fails on the missing key; the port refuses at construction."""
+    cfg, jcfg = ARCHS["llama-3.2-vision-90b"].smoke(), JARCHS["llama-3.2-vision-90b"].smoke()
+    jeng = JServeEngine(jcfg, max_batch=2, max_len=32)
+    jeng.submit(JRequest(rid=0, prompt=[1, 2], max_new=2))
+    with pytest.raises(KeyError, match="vision_embeds"):
+        jeng.run()
+    with pytest.raises(NotImplementedError, match="no vision stream"):
+        ServeEngine(cfg, device=CPU)
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b", "mixtral-8x7b"])
 def test_serve_engine_generates_the_references_tokens(arch):
     """Both engines, f32, the same converted weights and requests (more
     requests than slots, so slots are recycled): the same tokens per
