@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-Two paths, each through the entry points a user calls, each with the
+Several paths, each through the entry points a user calls, each with the
 kernel launch counts set to 0 just before it and read just after:
 
 * the paper's application (Sec. 4.2): Smith-Waterman protein database
@@ -22,11 +22,15 @@ kernel launch counts set to 0 just before it and read just after:
   (25 of 100 layers; prefill of 2048 tokens cross-attending 1601 vision
   rows, then 16 decode steps) and MusicGen-medium (all 48 layers; prefill
   of 2 x 1500 frames, then 16 decode steps), every attention block of each
-  prefill through the flash-attention kernel.
+  prefill through the flash-attention kernel;
+* training: Phi-3-mini-3.8B at full width (all 32 layers, bf16 parameters,
+  f32 moments) through ``launch.train.train``, every attention block
+  through the flash-attention kernel forward and its hand-written backward
+  kernel.
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernels from ``src/repro_torch/kernels/csrc``, one
+  2. build the four CUDA sources in ``src/repro_torch/kernels/csrc``, one
      nvcc each, all started together;
   3. SW kernel == plain PyTorch version on the card, exactly, on many shapes;
   4. the SW main path: a 4096-subject database through ``TaskFarm`` and
@@ -54,11 +58,24 @@ Phases, each on lines of its own; any failed check exits non-zero:
      or decode steps after the prefill, and the f32 prefill-against-decode
      consistency check at a cut depth (Mixtral 2 layers over 4608 tokens,
      past its window; Llama-Vision one period of 5 layers; MusicGen all 48);
-  10. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  10. training: the flash-attention backward kernel (three CUDA kernels
+      per call, counted as one launch) against its plain version on its
+      edges and at Phi-3's shape, with kernel, plain, bound and library
+      (SDPA's backward) times; Phi-3-mini-3.8B trained at full width (all
+      32 layers, bf16 parameters, f32 moments, remat) through
+      ``launch.train.train``, 5 steps of 2 x 4096 tokens: per-step ms,
+      tokens/s, share of the FLOP bound, FA launches (64 forward with the
+      remat recompute, 32 backward a step), the device time by part and
+      the peak memory; at 2 layers the f32 gradients through the kernels
+      against naive attention (bf16 must miss the limit) and a restart
+      from a checkpoint after an injected failure, equal to an
+      uninterrupted run;
+  11. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 import contextlib
+import gc
 import json
 import os
 import re
@@ -859,6 +876,7 @@ def phase_model_path(dev):
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     param_count, prefill)
     from repro_torch.models.model import segment_counts
+    from repro_torch.tree import tree_leaves
     cfg = ARCHS[MAIN_ARCH]
     segs = segment_counts(cfg)
     g, inner = segs["groups"], segs["ssm_per_group"]     # 9 groups of 5 + 1
@@ -866,8 +884,8 @@ def phase_model_path(dev):
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
-    n_el = sum(t.numel() for t in _leaves(params))
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_el = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads x {cfg.hdim}, d_ff {cfg.d_ff}, ssm heads "
           f"{cfg.ssm_heads} x {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
@@ -1013,14 +1031,6 @@ def _plain_versions():
         yield
     finally:
         attention.flash_attention, ssm.ssd_scan = saved
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def phase_model_timing(dev, fa, ssd):
@@ -1304,16 +1314,18 @@ def family_main_path(dev, arch, run):
     audio), then the f32 consistency check at its cut depth."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import decode_step, init_params, param_count, prefill
+    from repro_torch.tree import tree_leaves
     base = ARCHS[arch]
     cfg = base.replace(n_layers=run["layers"])
     B, S = run["batch"], run["seq"]
+    free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_el = sum(t.numel() for t in _leaves(params))
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_el = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     extra = (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts else "") \
         + (f", window {cfg.sliding_window}" if cfg.sliding_window else "") \
         + (f", cross-attention every {cfg.cross_attn_every} over "
@@ -1447,6 +1459,460 @@ def phase_families(dev):
     return results
 
 
+# phase 10: training.  Phi-3-mini-3.8B at full width (all 32 layers, bf16
+# parameters, f32 moments, remat on) through ``launch.train.train``:
+# TRAIN_STEPS steps of 2 x 4096 tokens from SyntheticLM seed 0, the first a
+# warm-up, the last profiled, no checkpoint directory.  Then the f32
+# gradient check and the restart at a cut depth of 2 layers (full width).
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_B, TRAIN_S = 2, 4096
+TRAIN_STEPS = 5               # step 0 warm-up, steps 1-3 timed, step 4 profiled
+TRAIN_TIMED = (1, 2, 3)
+TRAIN_PROFILED = 4
+# f32 gradients of one train step through the FA kernels (forward and
+# backward) against the same step with naive attention under autograd,
+# 2 layers, 1 x 2048 tokens: every leaf within TRAIN_GRAD_TOL of its own
+# largest |g|.  Sums run in other orders through two layers, the loss
+# chunks and the optimizer's clip; the bf16 step misses it (checked).
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_CUT = dict(layers=2, batch=1, seq=2048)
+RESTART = dict(steps=5, ckpt_every=2, fail_at=3)
+RESTART_TOL = 1e-4            # final loss, restarted against uninterrupted
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+# The JAX package has no backward kernel: XLA differentiates the model's
+# chunked_attention, whose gradient this kernel computes on the card.
+FA_BWD_REPLACES = "src/repro/models/attention.py:81"
+FA_BWD_SHAPE = (TRAIN_B, 32, 32, TRAIN_S, TRAIN_S, 96, True, None)
+FA_BWD_MAIN = (*FA_BWD_SHAPE[:6], FA_BWD_SHAPE[7], 0, FA_BWD_SHAPE[6])
+# The backward kernel's edges (B, H, Hkv, S, T, D, window, q_offset,
+# causal): every head dim, GQA and MQA, a window, S < T with q_offset,
+# S > T, the vision cross-attention's T = 1601, rows whose every key is
+# masked (q_offset < 0; a window past T), and Phi-3's shape, each in f32
+# and bf16.
+FA_BWD_EDGES = [
+    *[(1, 2, 1, 129, 200, d, None, 0, True) for d in (16, 32, 48, 64, 80,
+                                                      96, 112, 128)],
+    (2, 4, 2, 96, 160, 32, None, 0, True),
+    (1, 8, 1, 128, 128, 64, None, 0, True),
+    (2, 4, 4, 1, 1, 80, None, 0, True),
+    (1, 4, 4, 200, 200, 96, 48, 0, True),
+    (1, 2, 1, 77, 300, 128, None, 223, True),
+    (1, 4, 4, 300, 77, 128, None, 0, True),
+    (1, 2, 2, 100, 1601, 80, None, 0, False),
+    (1, 2, 1, 70, 70, 16, None, -3, True),
+    (1, 2, 2, 300, 100, 16, 30, 0, False),
+    FA_BWD_MAIN,
+]
+# At Phi-3's shape in bf16, each gradient is also held to BF16_GRAD_REL of
+# its own largest |plain| (one bf16 ulp of that element is at most 2^-7 of
+# it) and to BF16_GRAD_REL in relative L2 norm.  FA_TOL's 2e-2 absolute
+# term is about a typical |dv| there, so alone it would let half of dv go
+# unchecked; the L2 norm would see such a half wrong at about 0.3.
+BF16_GRAD_REL = 1e-2
+TRAIN_SPANS = ("train.adamw", "train.ce")    # profiler ranges of the step split
+
+
+def free_device_memory():
+    """Free what earlier models left: a finished ``ServeEngine`` holds its
+    parameters in a reference cycle (engine, farm, bound methods) that
+    only the garbage collector breaks, which may not have run yet."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, seed):
+    """q, k, v, do as (B, H, rows, D) views of the model's (B, rows, H, D)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+def _bf16_main_check(got, want):
+    """Each bf16 gradient at Phi-3's shape against BF16_GRAD_REL of its own
+    largest |plain| and in relative L2; returns the numbers, dv's median
+    |plain| beside its limit."""
+    out = {}
+    for name, g, w in zip("qkv", got, want):
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max())
+        limit = BF16_GRAD_REL * float(w.abs().max())
+        rel_l2 = float((g - w).norm() / w.norm())
+        median = float(w.abs().median())
+        print(f"fa backward at Phi-3's shape, bf16 d{name}: max |diff| "
+              f"{err:.3e} against the limit {limit:.3e} ({BF16_GRAD_REL} of "
+              f"max |plain|), median |plain| {median:.3e}; relative L2 "
+              f"{rel_l2:.3e} (limit {BF16_GRAD_REL})", flush=True)
+        check(err <= limit and rel_l2 <= BF16_GRAD_REL,
+              f"FA backward bf16 d{name} at Phi-3's shape: max |diff| {err} "
+              f"(limit {limit}), relative L2 {rel_l2} (limit {BF16_GRAD_REL})")
+        out.update({f"bf16 d{name} limit": limit, f"bf16 d{name} rel_l2": rel_l2,
+                    f"bf16 d{name} median_abs": median})
+    return out
+
+
+def phase_fa_backward(dev, fa):
+    """The FA backward kernel against fa_backward_plain on its edges (both
+    dtypes) and at Phi-3's shape, then kernel, plain, bound and library
+    (SDPA's backward through autograd) times at that shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    main = {}
+    cases = [(dt, e) for e in FA_BWD_EDGES for dt in (torch.float32, torch.bfloat16)]
+    for i, (dtype, edge) in enumerate(cases):
+        B, H, Hkv, S, T, D, window, q_offset, causal = edge
+        q, k, v, do = _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, 70 + i)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        o = fa.flash_attention(q, k, v, **kw)
+        got = fa.fa_backward(q, k, v, o, do, **kw)
+        want = fa.fa_backward_plain(q, k, v, o, do, kv_tile=fa.KV_TILE[dtype], **kw)
+        torch.cuda.synchronize()
+        for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+            err, ok = within(g, w, FA_TOL[dtype])
+            check(ok and g.dtype == x.dtype and g.stride() == x.stride(),
+                  f"FA backward d{name} != plain at B={B} H={H} Hkv={Hkv} S={S} "
+                  f"T={T} D={D} window={window} q_offset={q_offset} "
+                  f"causal={causal} {dtype}: {err}")
+            key = str(dtype).split(".")[1]
+            worst[key] = max(worst[key], err)
+            if edge == FA_BWD_MAIN:
+                main[f"{key} d{name}"] = err
+        if edge == FA_BWD_MAIN and dtype == torch.bfloat16:
+            main.update(_bf16_main_check(got, want))
+        del q, k, v, do, o, got, want
+    print(f"fa backward kernel == plain on {len(cases)} cases (every head dim, "
+          f"GQA/MQA, window, q_offset, S > T, T = 1601, rows with every key "
+          f"masked, and Phi-3's shape), gradients in the inputs' dtypes and "
+          f"layouts; max |err| f32 {worst['float32']:.3e} (tol 2e-5 + "
+          f"2e-5*|plain|), bf16 {worst['bfloat16']:.3e} (tol 2e-2 + "
+          f"2e-2*|plain|)", flush=True)
+
+    B, H, Hkv, S, T, D, causal, window = FA_BWD_SHAPE
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, S, T, D, 9)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    kern = cuda_ms(lambda: fa.fa_backward(q, k, v, o, do, causal=causal),
+                   iters=5, warmup=1)
+    plain = cuda_ms(lambda: fa.fa_backward_plain(
+        q, k, v, o, do, causal=causal, kv_tile=fa.KV_TILE[torch.bfloat16]),
+        iters=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_ms, reps = 0.0, 5
+    for i in range(reps + 1):
+        out = sdpa(*leaves, is_causal=True)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.backward(do)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:                          # the first is a warm-up
+            lib_ms += start.elapsed_time(stop) / reps
+        for t in leaves:
+            t.grad = None
+    pairs = fa_pairs(S, T, causal, window)
+    flop = 5 * 2 * B * H * D * pairs
+    t_ops = flop / PEAK_BF16
+    nbytes = 2 * (3 * B * H * S * D + 2 * B * Hkv * T * D     # q, o, do; k, v
+                  + B * H * S * D + 2 * B * Hkv * T * D)      # dq; dk, dv
+    t_bytes = nbytes / PEAK_BYTES
+    row = dict(ms=kern, plain_ms=plain, library_ms=lib_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               err=max(worst.values()), worst=worst, main_shape=main,
+               shape=f"B={B} H={H} Hkv={Hkv} S={S} T={T} D={D} causal bf16")
+    print(f"timing fa backward {row['shape']}: kernel {kern:.4f} ms (3 "
+          f"launches, SIMT f32), plain {plain:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: 5 products, "
+          f"{flop / 1e9:.2f} GFLOP at 989 TFLOP/s bf16; bytes "
+          f"{t_bytes * 1e3:.4f} ms), {flop / (kern * 1e-3) / 1e12:.2f} TFLOP/s "
+          f"of the 5 products, {row['bound_ms'] / kern:.4f} of the bound; "
+          f"library scaled_dot_product_attention(is_causal=True) backward "
+          f"through autograd {lib_ms:.4f} ms (the kernel takes "
+          f"{kern / lib_ms:.2f}x its time)", flush=True)
+    del q, k, v, do, o, leaves, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_flops(cfg, B, S):
+    """6·N·tokens (N = every parameter, the embeddings included) plus the
+    attention's forward (2) and backward (5) products of 2·D flops per
+    unmasked pair; the remat recompute not counted."""
+    from repro_torch.models import param_count
+    pairs = fa_pairs(S, S, True, cfg.sliding_window)
+    attn = 7 * 2 * cfg.hdim * pairs * B * cfg.n_heads * cfg.n_layers
+    return 6 * param_count(cfg) * B * S + attn
+
+
+def _timed_train_steps(record):
+    """A ``wrap_step`` for ``launch.train.train``: each step timed by CUDA
+    events and the host clock (the host's enqueue, then the wall to a
+    synchronise), its FA launch counts, and step TRAIN_PROFILED under
+    torch.profiler, where the program's own ranges (TRAIN_SPANS) mark the
+    optimizer update and the cross entropy (forward and its recompute)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+
+    def wrap(step_fn):
+        def timed(params, opt, batch):
+            i = len(record)
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                if i == TRAIN_PROFILED else contextlib.nullcontext()
+            f0, b0 = fa.launch_count(), fa.bwd_launch_count()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            with prof:
+                t0 = time.perf_counter()
+                start.record()
+                out = step_fn(params, opt, batch)
+                stop.record()
+                enq = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            record.append(dict(ms=start.elapsed_time(stop), enqueue_ms=enq * 1e3,
+                               wall_ms=wall * 1e3, fa=fa.launch_count() - f0,
+                               fa_bwd=fa.bwd_launch_count() - b0,
+                               metrics={k: float(v) for k, v in out[2].items()},
+                               prof=prof if i == TRAIN_PROFILED else None))
+            return out
+        return timed
+    return wrap
+
+
+def train_split(prof):
+    """One profiled train step's device time (ms) by part: FA forward (and
+    its remat recompute), FA backward, the optimizer update, the cross
+    entropy's forward and recompute (its backward GEMMs count as GEMMs,
+    its elementwise backward as the rest), the other GEMMs, the rest."""
+    kernels = [(ev.name, ev.device_time_total) for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.name not in TRAIN_SPANS]
+    total = sum(us for _, us in kernels) / 1e3
+    fa_fwd = sum(us for n, us in kernels if "fa_kernel" in n
+                 or "fa_wgmma_kernel" in n) / 1e3
+    fa_bwd = sum(us for n, us in kernels if "fa_bwd_" in n) / 1e3
+    gemm = sum(us for n, us in kernels
+               if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
+    spans = {name: [] for name in TRAIN_SPANS}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU and ev.name in spans:
+            spans[ev.name] += list(_kernels_under(ev))
+    if total > 0:
+        check(all(spans.values()), f"profiled train step: no kernel under "
+              f"the ranges {[n for n, k in spans.items() if not k]}")
+    opt_ms = sum(us for _, us in spans[TRAIN_SPANS[0]]) / 1e3
+    ce_ms = sum(us for _, us in spans[TRAIN_SPANS[1]]) / 1e3
+    ce_gemm = sum(us for n, us in spans[TRAIN_SPANS[1]]
+                  if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
+    other_gemm = gemm - ce_gemm
+    return {"total": total, "GEMMs": other_gemm, "FA forward": fa_fwd,
+            "FA backward": fa_bwd, "optimizer update": opt_ms,
+            "cross-entropy": ce_ms,
+            "rest": total - other_gemm - fa_fwd - fa_bwd - opt_ms - ce_ms}
+
+
+def _grad_tree(params, batch, cfg):
+    """(loss, [grad per leaf]) as the train step takes them."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.tree import tree_leaves
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+    return float(loss), tree_leaves(grads)
+
+
+def train_consistency(dev, base):
+    """f32 gradients of one step through the kernels against naive
+    attention under autograd, 2 layers at full width; the bf16 step must
+    miss the limit."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    cfg = base.replace(n_layers=TRAIN_CUT["layers"], dtype="float32")
+    np_batch = SyntheticLM(cfg, TRAIN_CUT["batch"], TRAIN_CUT["seq"], seed=1)(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    params = init_params(cfg, 0, device=dev)
+    f0, b0 = fa.launch_count(), fa.bwd_launch_count()
+    loss_k, g_k = _grad_tree(params, batch, cfg)
+    torch.cuda.synchronize()
+    launched = (fa.launch_count() - f0, fa.bwd_launch_count() - b0)
+    check(launched == (2 * cfg.n_layers, cfg.n_layers),
+          f"f32 train step launched fa {launched}, expected "
+          f"({2 * cfg.n_layers}, {cfg.n_layers})")
+    loss_n, g_n = _grad_tree(params, batch, cfg.replace(attn_impl="naive"))
+    check(fa.launch_count() - f0 == 2 * cfg.n_layers,
+          "the naive step launched the FA kernel")
+
+    def worst(grads):
+        out = 0.0
+        for g, w in zip(grads, g_n):
+            out = max(out, float((g.float() - w).abs().max())
+                      / max(float(w.abs().max()), 1e-30))
+        return out
+
+    err32 = worst(g_k)
+    del params, g_k
+    torch.cuda.empty_cache()
+    p16 = init_params(cfg.replace(dtype="bfloat16"), 0, device=dev)
+    loss_16, g_16 = _grad_tree(p16, batch, cfg.replace(dtype="bfloat16"))
+    err16 = worst(g_16)
+    del p16, g_16, g_n
+    torch.cuda.empty_cache()
+    print(f"train consistency {cfg.name} ({cfg.n_layers} layers, full width) "
+          f"f32, {TRAIN_CUT['batch']} x {TRAIN_CUT['seq']} tokens: gradients "
+          f"through the FA kernels (forward {2 * cfg.n_layers} launches with "
+          f"the remat recompute, backward {cfg.n_layers}) against naive "
+          f"attention under autograd, worst leaf max |diff| / max |g| "
+          f"{err32:.3e} (tol {TRAIN_GRAD_TOL}); losses {loss_k:.6f} / "
+          f"{loss_n:.6f}; the bf16 step is {err16:.3e} from the f32 naive "
+          f"gradients (loss {loss_16:.6f}), so bf16 fails the tolerance",
+          flush=True)
+    check(err32 <= TRAIN_GRAD_TOL,
+          f"f32 kernel gradients vs naive: {err32} > {TRAIN_GRAD_TOL}")
+    check(err16 > TRAIN_GRAD_TOL,
+          f"bf16 gradients {err16} within {TRAIN_GRAD_TOL}: the tolerance "
+          f"would not catch bf16")
+    return err32, err16
+
+
+def train_restart(dev, base):
+    """train() with checkpoints every RESTART['ckpt_every'] steps and an
+    injected failure, then again from the checkpoint: the final loss must
+    equal an uninterrupted run's."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import latest_step
+    cfg = base.replace(n_layers=TRAIN_CUT["layers"])
+    kw = dict(steps=RESTART["steps"], batch=TRAIN_CUT["batch"],
+              seq=TRAIN_CUT["seq"], seed=0, log_every=100, device=dev)
+    _, losses_a = train(cfg, ckpt_dir=None, **kw)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        try:
+            train(cfg, ckpt_dir=tmp, ckpt_every=RESTART["ckpt_every"],
+                  inject_failure_at=RESTART["fail_at"], **kw)
+            check(False, "the injected failure did not raise")
+        except RuntimeError as e:
+            check("injected" in str(e), f"train failed otherwise: {e}")
+        t_fail = time.perf_counter() - t0
+        last = latest_step(tmp)
+        check(last == RESTART["ckpt_every"], f"latest checkpoint {last}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _, losses_b = train(cfg, ckpt_dir=tmp, ckpt_every=100, **kw)
+        t_resume = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.npz"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = abs(losses_a[-1] - losses_b[-1])
+    print(f"train restart {cfg.name} ({cfg.n_layers} layers, full width, bf16, "
+          f"f32 moments): {RESTART['steps']} steps of {TRAIN_CUT['batch']} x "
+          f"{TRAIN_CUT['seq']}; failure injected at step {RESTART['fail_at']} "
+          f"after the checkpoint at step {last} ({t_fail:.1f} s), resumed "
+          f"({t_resume:.1f} s, {len(losses_b)} steps, {nbytes / 1e9:.2f} GB "
+          f"of npz written in all); final loss {losses_b[-1]:.6f} against "
+          f"{losses_a[-1]:.6f} uninterrupted, |diff| {err:.3e} (tol "
+          f"{RESTART_TOL})", flush=True)
+    check(len(losses_b) == RESTART["steps"] - last, "resumed the wrong step")
+    check(err <= RESTART_TOL, f"restart final loss off by {err}")
+    return err
+
+
+def phase_training(dev, fa):
+    """Phase 10: the FA backward kernel, then Phi-3-mini-3.8B training at
+    full width through ``train``, the f32 gradient check and the restart."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import train
+    from repro_torch.models import param_count
+    t_phase = time.perf_counter()
+    bwd_row = phase_fa_backward(dev, fa)
+
+    cfg = ARCHS[TRAIN_ARCH]
+    n = param_count(cfg)
+    print(f"model {TRAIN_ARCH} (all {cfg.n_layers} layers, full width): "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.hdim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} parameters, "
+          f"{cfg.optimizer_dtype} moments, remat {cfg.remat}, loss chunk "
+          f"{cfg.loss_chunk}; {n} parameters: {n * 2 / 1e9:.3f} GB bf16, "
+          f"moments {n * 8 / 1e9:.2f} GB f32, gradients {n * 2 / 1e9:.2f} GB "
+          f"bf16, {n * 12 / 1e9:.2f} GB of state before activations", flush=True)
+    record = []
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                   # --- counted window ---
+    state, losses = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                          ckpt_dir=None, seed=0, log_every=1, device=dev,
+                          wrap_step=_timed_train_steps(record))
+    counts = read_counts()                           # --- end of window ---
+    bwd = fa.bwd_launch_count()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    check(counts == {"sw": 0, "fa": 2 * L * TRAIN_STEPS, "ssd": 0}
+          and bwd == L * TRAIN_STEPS,
+          f"train launched {counts} and fa backward {bwd}, expected fa "
+          f"{2 * L * TRAIN_STEPS} (forward and remat) and backward {L * TRAIN_STEPS}")
+    check(len(record) == TRAIN_STEPS and all(
+        r["fa"] == 2 * L and r["fa_bwd"] == L for r in record),
+        f"per-step FA launches {[(r['fa'], r['fa_bwd']) for r in record]}")
+    check(all(np.isfinite(losses)) and all(
+        np.isfinite(r["metrics"]["grad_norm"]) and r["metrics"]["grad_norm"] > 0
+        for r in record), f"losses {losses} or grad norms not finite / zero")
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    bound_s = flops / PEAK_BF16
+    ntok = TRAIN_B * TRAIN_S
+    for i, r in enumerate(record):
+        tag = ("warm-up" if i == 0 else "timed" if i in TRAIN_TIMED else
+               "profiled" if i == TRAIN_PROFILED else "")
+        m = r["metrics"]
+        print(f"train step {i} ({tag}): {r['ms']:.3f} ms (CUDA events), "
+              f"{ntok / r['ms'] * 1e3:.1f} tokens/s, {bound_s * 1e3 / r['ms']:.4f} "
+              f"of the {bound_s * 1e3:.3f} ms FLOP bound; host enqueue "
+              f"{r['enqueue_ms']:.3f} ms of {r['wall_ms']:.3f} ms wall; loss "
+              f"{m['loss']:.6f} ce {m['ce']:.6f} grad_norm {m['grad_norm']:.6f} "
+              f"lr {m['lr']:.3e}; FA launches {r['fa']} forward (with the "
+              f"remat recompute) and {r['fa_bwd']} backward", flush=True)
+    timed = [record[i]["ms"] for i in TRAIN_TIMED]
+    step_ms = float(np.mean(timed))
+    print(f"train {TRAIN_ARCH} B={TRAIN_B} S={TRAIN_S}: {step_ms:.3f} ms/step "
+          f"(mean of steps {TRAIN_TIMED}: {', '.join(f'{t:.3f}' for t in timed)}), "
+          f"{ntok / step_ms * 1e3:.1f} tokens/s, {bound_s * 1e3 / step_ms:.4f} "
+          f"of the FLOP bound ({flops / 1e12:.1f} TFLOP at 989 TFLOP/s bf16: "
+          f"6 x {n} parameters x {ntok} tokens plus the attention's 2 + 5 "
+          f"products, remat not counted); peak device memory {peak:.3f} GB; "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}", flush=True)
+    prof = record[TRAIN_PROFILED]["prof"]
+    split = train_split(prof)
+    wall = record[TRAIN_PROFILED]["wall_ms"]
+    if split["total"] > 0:
+        print(f"train step device time by part (torch.profiler, step "
+              f"{TRAIN_PROFILED}): " + ", ".join(
+                  f"{k} {v:.3f} ms ({v / split['total']:.4f})"
+                  for k, v in split.items() if k != "total")
+              + f"; total {split['total']:.3f} ms of a {wall:.3f} ms profiled "
+              f"wall, host enqueue {record[TRAIN_PROFILED]['enqueue_ms']:.3f} "
+              f"ms; device idle share {max(0.0, 1 - split['total'] / wall):.4f}",
+              flush=True)
+    else:
+        print("train step device time by part: the profiler saw no device "
+              "time (not measured)", flush=True)
+    del state, record, prof
+    torch.cuda.empty_cache()
+
+    err32, err16 = train_consistency(dev, cfg)
+    restart_err = train_restart(dev, cfg)
+    print(f"training phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"bwd_row": bwd_row, "fa": counts["fa"], "fa_bwd": bwd,
+            "step_ms": step_ms, "tokens_per_s": ntok / step_ms * 1e3,
+            "bound_share": bound_s * 1e3 / step_ms, "peak_gb": peak,
+            "split": split, "grad_err_f32": err32, "grad_err_bf16": err16,
+            "restart_err": restart_err}
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of a checkout (src/repro_torch missing)")
@@ -1485,6 +1951,7 @@ def main():
     model_launches, _ = phase_model_path(dev)
     model_rows = phase_model_timing(dev, fa, ssd)
     families = phase_families(dev)
+    training = phase_training(dev, fa)
 
     main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
@@ -1520,15 +1987,34 @@ def main():
             by_path = {"zamba2 prefill": model_launches["fa"]}
             by_path.update({f"{FAMILY_RUNS[a]['path']} prefill": f["fa"]
                             for a, f in families.items()})
+            by_path["phi3 train"] = training["fa"]
             shapes = model_rows["fa_shapes"]
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
-                launches_per="one prefill of each path",
+                launches_per=f"one prefill of each path and {TRAIN_STEPS} "
+                             f"phi3 train steps (forward and remat recompute)",
                 max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes)),
                 shapes=[{k: x[k] for k in ("path", "shape", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
                                            "library")} for x in shapes])
         kernels.append(entry)
+    r = training["bwd_row"]
+    kernels.append({
+        "name": "fa_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
+        "replaces": FA_BWD_REPLACES,
+        "replaces_what": "XLA's gradient of chunked_attention: the JAX "
+                         "package has no backward kernel",
+        "launches": training["fa_bwd"],
+        "launches_by_path": {"phi3 train": training["fa_bwd"]},
+        "launches_per": f"{TRAIN_STEPS} phi3 train steps (3 kernels a launch)",
+        "max_abs_err": r["err"], "max_abs_err_by_type": r["worst"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "library": "scaled_dot_product_attention(is_causal=True) backward "
+                   "through autograd",
+        "shape": r["shape"],
+        "main_shape_check": r["main_shape"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from .kernels.ops import resolve_device
+from .tree import tree_leaves_with_path, tree_map
 
 __all__ = ["matrix_from_numpy", "profile_from_numpy", "params_from_numpy",
-           "tensor_from_numpy"]
+           "opt_state_from_numpy", "tensor_from_numpy"]
 
 
 def _f32(a: Any, device: Any) -> torch.Tensor:
@@ -60,9 +61,7 @@ def tensor_from_numpy(a: Any, *, device: Any = None) -> torch.Tensor:
 
 
 def _tree(tree: Any, device: torch.device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree(v, device) for k, v in tree.items()}
-    return tensor_from_numpy(tree, device=device)
+    return tree_map(lambda a: tensor_from_numpy(a, device=device), tree)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: Any, *,
@@ -73,17 +72,34 @@ def params_from_numpy(tree: Dict[str, Any], cfg: Any, *,
     dev = resolve_device(device)
     want = init_params_spec(cfg)
     out = _tree(tree, dev)
-    got = {k: (tuple(v.shape), v.dtype) for k, v in _flat(out)}
-    if got != dict(_flat(want)):
+    got = {k: (tuple(v.shape), v.dtype) for k, v in tree_leaves_with_path(out)}
+    want = dict(tree_leaves_with_path(want))
+    if got != want:
         raise ValueError(f"parameter tree does not match {cfg.name}: "
-                         f"{sorted(set(got) ^ set(dict(_flat(want))))} or "
-                         f"shapes/dtypes differ")
+                         f"{sorted(set(got) ^ set(want))} or shapes/dtypes differ")
     return out
 
 
-def _flat(tree: Any, prefix: str = ""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flat(v, f"{prefix}{k}/")
-    else:
-        yield prefix.rstrip("/"), tree
+def opt_state_from_numpy(state: Any, cfg: Any, *, device: Any = None):
+    """The reference's ``AdamWState`` (``step``, ``mu``, ``nu``, each
+    mapped through ``np.asarray``; a NamedTuple or a (step, mu, nu) tuple)
+    as the port's ``repro_torch.optim.AdamWState``: the step as a 0-d int32
+    tensor, the moments with the parameters' keys and shapes in their own
+    (moment) dtype."""
+    from .models.model import init_params_spec
+    from .optim import AdamWState
+    step, mu, nu = state
+    dev = resolve_device(device)
+    want = {k: shape for k, (shape, _)
+            in tree_leaves_with_path(init_params_spec(cfg))}
+    out = []
+    for name, tree in (("mu", mu), ("nu", nu)):
+        t = _tree(tree, dev)
+        got = {k: tuple(v.shape) for k, v in tree_leaves_with_path(t)}
+        if got != want:
+            raise ValueError(f"{name} does not match {cfg.name}'s parameter "
+                             f"tree: {sorted(set(got) ^ set(want))} or shapes "
+                             f"differ")
+        out.append(t)
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev)
+    return AdamWState(step, *out)

@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 
-SOURCES = ("smith_waterman", "flash_attention", "ssd_scan")
+SOURCES = ("smith_waterman", "flash_attention", "flash_attention_bwd",
+           "ssd_scan")
 
 _LOCK = threading.Lock()                      # guards _NAME_LOCKS
 _NAME_LOCKS: Dict[str, threading.Lock] = {}

@@ -11,6 +11,14 @@ pipes); on CPU tensors it runs :func:`fa_plain`.  There is no fallback from
 a kernel to the plain version, nor from the bfloat16 kernel to the SIMT
 one: a bfloat16 layout that TMA cannot take (:func:`tma_problem`) raises.
 
+With grad mode on and an input that requires grad, a CUDA call goes
+through :class:`FlashAttentionFn`, whose backward is the hand-written
+kernel of ``csrc/flash_attention_bwd.cu`` (:func:`fa_backward`, three
+launches counted as one backward launch); a CPU call runs :func:`fa_plain`
+under autograd.  :func:`fa_backward_plain` is that backward's plain
+version.  The JAX package has no backward kernel: XLA differentiates the
+model's ``chunked_attention`` there.
+
 :func:`fa_plain` is the TPU kernel's arithmetic in eager PyTorch, with one
 q tile of all S rows: an online softmax over kv tiles, m, l and acc in f32,
 P rounded to v's dtype before P·V (accumulated in f32, as the CUDA kernel
@@ -25,15 +33,23 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention", "fa_plain", "tma_problem", "launch_count",
-           "reset_launch_count", "NEG", "HEAD_DIMS"]
+__all__ = ["flash_attention", "fa_plain", "FlashAttentionFn", "fa_backward",
+           "fa_backward_plain", "tma_problem", "launch_count",
+           "bwd_launch_count", "reset_launch_count", "NEG", "HEAD_DIMS",
+           "KV_TILE"]
 
 NEG = -1e9
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)   # the kernel's instances
 _PLAIN_BK = 512      # kv rows per step of the plain version's online softmax
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The forward kernels' kv tiles: a tile that no row of a 64-row q group can
+# see is skipped, which decides what a row whose every key is masked sees.
+KV_TILE = {torch.float32: 64, torch.bfloat16: 128}
+_Q_GROUP = 64
+_PLAIN_BQ = 512      # q rows per step of the plain backward
 
-LAUNCHES = 0         # kernel launches since the last reset
+LAUNCHES = 0         # forward kernel launches since the last reset
+BWD_LAUNCHES = 0     # backward launches (three kernels each) since then
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -42,16 +58,25 @@ def launch_count() -> int:
         return LAUNCHES
 
 
+def bwd_launch_count() -> int:
+    with _LAUNCH_LOCK:
+        return BWD_LAUNCHES
+
+
 def reset_launch_count() -> None:
-    global LAUNCHES
+    """Set both counts, forward and backward, to 0."""
+    global LAUNCHES, BWD_LAUNCHES
     with _LAUNCH_LOCK:
-        LAUNCHES = 0
+        LAUNCHES = BWD_LAUNCHES = 0
 
 
-def _count_launch() -> None:
-    global LAUNCHES
+def _count_launch(backward: bool = False) -> None:
+    global LAUNCHES, BWD_LAUNCHES
     with _LAUNCH_LOCK:
-        LAUNCHES += 1
+        if backward:
+            BWD_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
 
 
 def fa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,6 +112,74 @@ def fa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def fa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      kv_tile: Optional[int] = None):
+    """(dq, dk, dv) of ``flash_attention`` in q's, k's and v's dtypes: the
+    backward kernel's three steps in eager PyTorch, in f32, over blocks of
+    q rows.  (1) Each row's max m and sum l of exp(s - m) over the keys it
+    visits, and Δ = rowsum(do ∘ o); (2) P = exp(s - m)/l, dv = Σ Pᵀ·do,
+    dS = P ∘ (do·vᵀ - Δ), 0 where masked, dk = Σ dSᵀ·q·D^-0.5; (3)
+    dq = dS·k·D^-0.5.  The forward's rounding of P to v's dtype is taken as
+    the identity.
+
+    ``kv_tile=None`` differentiates :func:`fa_plain`: every row visits every
+    key, so a row whose keys are all masked averages v over all T keys.
+    ``kv_tile=KV_TILE[dtype]`` differentiates the CUDA forward kernel,
+    which skips each kv tile of that many rows that no row of a 64-row q
+    group can see, and counts the padding slots past T of a visited tile
+    in l; the two differ only on rows whose every key is masked.
+    """
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    dev, f32 = q.device, torch.float32
+    scale = D ** -0.5
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]    # (B,Hkv,1,T,D)
+    dk = torch.zeros((B, Hkv, T, D), dtype=f32, device=dev)
+    dv = torch.zeros((B, Hkv, T, D), dtype=f32, device=dev)
+    dq = torch.empty((B, H, S, D), dtype=f32, device=dev)
+    kpos = torch.arange(T, device=dev)
+    for r0 in range(0, S, _PLAIN_BQ):
+        rows = torch.arange(r0, min(r0 + _PLAIN_BQ, S), device=dev)
+        n = rows.numel()
+        qpos = rows[:, None] + q_offset
+        mask = torch.ones((n, T), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos
+        if window is not None:
+            mask &= kpos[None, :] > qpos - window
+        if kv_tile is None:
+            seen = torch.ones((n, T), dtype=torch.bool, device=dev)
+            pad = torch.zeros((n, 1), dtype=f32, device=dev)
+        else:       # the forward kernel's skip rule, per (q group, kv tile)
+            glo = rows // _Q_GROUP * _Q_GROUP + q_offset
+            n_kt = -(-T // kv_tile)
+            kv0 = torch.arange(n_kt, device=dev) * kv_tile
+            tile_seen = torch.ones((n, n_kt), dtype=torch.bool, device=dev)
+            if causal:
+                tile_seen &= kv0[None, :] <= glo[:, None] + _Q_GROUP - 1
+            if window is not None:
+                tile_seen &= kv0[None, :] + kv_tile - 1 > glo[:, None] - window
+            seen = tile_seen[:, kpos // kv_tile]
+            pad = tile_seen[:, -1:].to(f32) * (n_kt * kv_tile - T)
+        qc = q[:, :, r0:r0 + n].float().reshape(B, Hkv, g, n, D)
+        dc = do[:, :, r0:r0 + n].float().reshape(B, Hkv, g, n, D)
+        oc = o[:, :, r0:r0 + n].float().reshape(B, Hkv, g, n, D)
+        delta = (dc * oc).sum(-1, keepdim=True)
+        s = torch.where(mask, (qc @ kf.transpose(-1, -2)) * scale, NEG)
+        s = torch.where(seen, s, -torch.inf)                 # never visited
+        m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG)
+        l = torch.exp(s - m).sum(dim=-1, keepdim=True) + pad * torch.exp(NEG - m)
+        p = torch.exp(s - m) * torch.where(l > 0, 1.0 / l, 0.0)
+        dv += (p.transpose(-1, -2) @ dc).sum(dim=2)
+        ds = torch.where(mask, p * (dc @ vf.transpose(-1, -2) - delta), 0.0)
+        dk += (ds.transpose(-1, -2) @ qc).sum(dim=2) * scale
+        dq[:, :, r0:r0 + n] = (ds @ kf).reshape(B, H, n, D) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def tma_problem(name: str, shape, strides, dtype: torch.dtype,
@@ -129,17 +222,92 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """softmax(q·kᵀ·D^-0.5 + mask)·v.
+@functools.lru_cache(maxsize=1)
+def _bwd_lib() -> ctypes.CDLL:
+    from ._build import load
+    lib = load("flash_attention_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fa_bwd_launch.argtypes = [p] * 9 + [i] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), f, i, i, i, i, p]
+    lib.fa_bwd_launch.restype = i
+    lib.fa_bwd_error_string.argtypes = [i]
+    lib.fa_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
-    q (B,H,S,D); k, v (B,Hkv,T,D) with H % Hkv == 0, one dtype (float32 or
-    bfloat16), one device; any strides with a unit last axis.  ``q_offset``
-    is the absolute position of q's row 0 against k's row 0.  Returns
-    (B,H,S,D) in q's dtype, laid out like q.  On CUDA the kernel runs on
-    the current stream and does not synchronise.
-    """
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient.  It
+    saves q, k, v and the output, nothing else: the backward recomputes
+    each row's softmax statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = _fa_launch(q, k, v, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.args
+        dq, dk, dv = fa_backward(q, k, v, out, do, causal=causal,
+                                 window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                window: Optional[int] = None, q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` with output ``o`` and
+    output gradient ``do``, by the CUDA backward kernel: three launches on
+    the current stream, counted as one backward launch, no synchronise.
+    The gradients come back in q's, k's and v's dtypes and layouts; ``do``
+    may have any strides (it is copied if its last axis is not unit)."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash-attention backward kernel runs on CUDA, "
+                         f"not {q.device}; use fa_backward_plain")
+    if o.shape != q.shape or do.shape != q.shape or not (
+            o.dtype == do.dtype == q.dtype) or o.device != q.device \
+            or do.device != q.device:
+        raise ValueError(f"o and do must be {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}")
+    if o.stride(-1) != 1:
+        raise ValueError("o needs a unit stride on the last axis")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    dq, dk, dv = (_like(t) for t in (q, k, v))
+    stats = torch.empty((3, B * H * S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]])
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fa_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides,
+            float(D ** -0.5), int(causal), 0 if window is None else int(window),
+            int(q_offset), KV_TILE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"fa_bwd_launch failed: CUDA error {err} "
+                           f"({lib.fa_bwd_error_string(err).decode()})")
+    _count_launch(backward=True)
+    return dq, dk, dv
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor in ``t``'s layout (a (B,S,H,D) view stays one)."""
+    out = torch.empty_like(t)
+    return out if out.stride(-1) == 1 else torch.empty(
+        t.shape, dtype=t.dtype, device=t.device)
+
+
+def _check(q, k, v) -> None:
+    """Raise on inputs that neither the kernels nor the plain version take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-d, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -151,13 +319,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(B,Hkv,T,D) with H % Hkv == 0")
     if S == 0 or T == 0:
         raise ValueError("S and T must be at least 1")
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must share a device")
     if q.device.type == "cpu":
-        return fa_plain(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset)
+        return
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
@@ -167,6 +332,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on the last axis")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """softmax(q·kᵀ·D^-0.5 + mask)·v.
+
+    q (B,H,S,D); k, v (B,Hkv,T,D) with H % Hkv == 0, one dtype (float32 or
+    bfloat16), one device; any strides with a unit last axis.  ``q_offset``
+    is the absolute position of q's row 0 against k's row 0.  Returns
+    (B,H,S,D) in q's dtype, laid out like q.  On CUDA the kernel runs on
+    the current stream and does not synchronise; with grad mode on and an
+    input that requires grad it runs through :class:`FlashAttentionFn`.
+    """
+    _check(q, k, v)
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if q.device.type == "cpu":
+        return fa_plain(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+    return _fa_launch(q, k, v, causal, window, q_offset)
+
+
+def _fa_launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """One forward launch on inputs that ``_check`` passed, on CUDA."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             why = tma_problem(name, t.shape, t.stride(), t.dtype,
@@ -176,9 +370,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if why is not None:
                 raise ValueError(why)
 
-    out = torch.empty_like(q)            # q's layout (a (B,S,H,D) view stays one)
-    if out.stride(-1) != 1:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = _like(q)
     # an axis of size 1 is never stepped along: give it a stride TMA takes
     strides = (ctypes.c_longlong * 12)(*[
         st if n > 1 else 8 for t in (q, k, v, out)

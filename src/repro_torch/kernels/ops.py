@@ -70,10 +70,12 @@ def _blosum50_on(device: torch.device) -> torch.Tensor:
     return BLOSUM50.to(device)
 
 
-def encode_seq(seq: str, device: Any = "cpu") -> torch.Tensor:
+def encode_seq(seq: str, device: Any = None) -> torch.Tensor:
+    """A protein sequence as int32 codes of ``AA_ALPHABET`` (unknown letters
+    as X) on ``device`` (``None``: the card)."""
     lut = {c: i for i, c in enumerate(AA_ALPHABET)}
     return torch.tensor([lut.get(c, lut["X"]) for c in seq.upper()],
-                        dtype=torch.int32, device=device)
+                        dtype=torch.int32, device=resolve_device(device))
 
 
 def build_profile(query: torch.Tensor, matrix: torch.Tensor = BLOSUM50,

@@ -134,7 +134,8 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
     chosen by Qp alone: Qp <= 1024 runs the warp kernel (one warp per
     subject, the profile in shared memory, so A * Qp * 4 bytes must fit a
     block's 227 KB); Qp > 1024 runs the block kernel (one 1024-thread block
-    per subject).
+    per subject).  There is no backward kernel: a CUDA profile that
+    requires grad, with grad mode on, raises ``NotImplementedError``.
     """
     if profile.dim() != 2 or subjects.dim() != 2:
         raise ValueError(f"profile must be (A, Qp) and subjects (B, Dp), got "
@@ -164,6 +165,10 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
         return sw_plain(profile, subj, gap_open, gap_extend, q_len).reshape(B)
     if profile.device.type != "cuda":
         raise ValueError(f"no Smith-Waterman kernel for {profile.device}")
+    if torch.is_grad_enabled() and profile.requires_grad:
+        raise NotImplementedError(
+            "sw_batch has no backward kernel on CUDA (no Smith-Waterman "
+            "backward kernel exists): its scores would carry no gradient")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("profile, subjects and lengths must be contiguous")
     if Qp <= WARP_QP and A * Qp * 4 > _MAX_SMEM:

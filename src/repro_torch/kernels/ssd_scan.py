@@ -130,7 +130,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtype (float32 or bfloat16), dt, A and h0 are float32, all contiguous;
     the five kernels run on the current stream and do not synchronise.
     Their scratch (cs in float64, CBᵀ and the chunk states (b,T/l,H,N,P)
-    in f32) comes from ``torch.empty`` here.
+    in f32) comes from ``torch.empty`` here.  There is no backward kernel
+    yet: on CUDA, with grad mode on and an input that requires grad, it
+    raises ``NotImplementedError`` rather than return a result that
+    autograd cannot differentiate.
     """
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 3:
         raise ValueError(f"x (b,T,H,P), dt (b,T,H), A (H,), B/C (b,T,N) "
@@ -158,6 +161,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_plain(x, dt, A, B, C, l, h0=h0, compute_dtype=compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel on CUDA yet (the SSD backward "
+            "kernel is not written): its output would carry no gradient, so "
+            "the ssm and hybrid families cannot train on the card")
     if x.dtype not in _DTYPES or not (x.dtype == B.dtype == C.dtype):
         raise TypeError(f"x, B, C must share float32 or bfloat16, got "
                         f"{x.dtype}, {B.dtype}, {C.dtype}")

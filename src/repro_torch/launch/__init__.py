@@ -1,2 +1,2 @@
 """Launchers of the port (counterpart of ``repro.launch``): the serving
-engine."""
+engine, the step builders and the training loop."""

@@ -13,24 +13,36 @@ Mamba2-SSD / cross-attention) according to ``cfg.layer_kinds()``:
               stream.
 
 The stacks run as Python loops over the leading axes (the reference's
-``lax.scan``).  ``prefill`` is where the hand-written kernels run on the
-card: every attention block of it, self or cross, goes through the
-flash-attention kernel and every Mamba2 block through the SSD kernel.
+``lax.scan``), over the per-layer views that one ``unbind(0)`` per stacked
+leaf gives.  ``prefill`` and ``loss_fn`` are where the hand-written kernels
+run on the card: every attention block, self or cross, goes through the
+flash-attention kernel (forward, and under autograd its backward kernel)
+and every Mamba2 block through the SSD kernel, which has no backward
+kernel yet, so the ssm and hybrid families train only on the CPU.
 ``decode_step`` is plain PyTorch, as in the reference.  Caches are
 returned as new tensors; the inputs are never written.
 
-Left for later slices of the port: ``loss_fn`` (ROADMAP §1 item 10,
-training) and the sharding specs (item 11, multi-GPU); there is one
-device.
+Training follows the reference: ``loss_fn`` is the vocab cross entropy,
+chunked over ``cfg.loss_chunk`` with each chunk recomputed in the backward
+(the reference's ``jax.checkpoint`` per chunk), plus 0.01 times the MoE
+router loss; with ``cfg.remat`` each scan body (a layer; a group for the
+hybrid and vlm families; the ssm family has none, as in the reference) is
+recomputed in the backward by ``torch.utils.checkpoint``.
+
+Left for a later slice of the port: the sharding specs (ROADMAP §1 item
+11, multi-GPU); there is one device.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
+from ..tree import tree_map
 from .attention import attention, decode_attention
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, embed_init, init_device,
@@ -38,8 +50,9 @@ from .layers import (apply_rope, dense_init, embed_init, init_device,
 from .moe import moe_apply, moe_init
 from .ssm import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
-__all__ = ["init_params", "init_params_spec", "forward_hidden", "prefill", "decode_step",
-           "init_cache", "segment_counts", "SUPPORTED_FAMILIES"]
+__all__ = ["init_params", "init_params_spec", "forward_hidden", "loss_fn",
+           "prefill", "decode_step", "init_cache", "segment_counts",
+           "SUPPORTED_FAMILIES"]
 
 Params = Dict[str, Any]
 SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -101,12 +114,6 @@ def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _stacked(build_one: Callable[[Optional[torch.Generator]], Any],
              gen: Optional[torch.Generator], *lead: int):
     """``build_one(gen)``'s tree with every leaf stacked on the leading
@@ -115,7 +122,7 @@ def _stacked(build_one: Callable[[Optional[torch.Generator]], Any],
     stack plus one tree (not twice the stack), and the draws come in the
     same order on every device and in every dtype."""
     dev = init_device(gen)
-    out = _map(lambda t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
+    out = tree_map(lambda t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
                                      device=dev), build_one(None))
     if gen is not None:
         for idx in itertools.product(*map(range, lead)):
@@ -131,9 +138,17 @@ def _fill(dst, src, idx) -> None:
         dst[idx].copy_(src)
 
 
-def _index(tree, *idx):
-    """The tree's slice at leading indices ``idx`` (views, no copy)."""
-    return _map(lambda t: t[idx], tree)
+def _layers(tree) -> List[Any]:
+    """A stacked tree as the list of its per-index trees (views), by one
+    ``unbind(0)`` per leaf.  Under autograd the gradient of each stacked
+    leaf is then stacked once from the per-layer gradients; indexing layer
+    by layer would write a zero-filled gradient of the whole stack for
+    every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _build_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
@@ -183,12 +198,45 @@ def init_params_spec(cfg: ModelConfig) -> Params:
     """The tree of ``init_params`` as ``(shape, dtype)`` leaves, drawn
     nowhere (on the ``meta`` device)."""
     _check_family(cfg)
-    return _map(lambda t: (tuple(t.shape), t.dtype), _build_params(cfg, None))
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), _build_params(cfg, None))
 
 
 # ==========================================================================
 # blocks
 # ==========================================================================
+def _chunk_ce(x_c: torch.Tensor, labels_c: torch.Tensor, head: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """Per-token cross entropy of one chunk: logits in f32, the vocab
+    padding sliced off.  A profiler range ("train.ce") covers it, the
+    backward's recompute included."""
+    with record_function("train.ce"):
+        logits = (x_c.float() @ head.float().T)[..., :vocab]
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+        return lse - lab
+
+
+def _vocab_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """(B, S) per-token cross entropy of x (B,S,d) against head (V,d).
+    With ``cfg.loss_chunk`` dividing S it runs chunk by chunk along S and,
+    under autograd, each chunk's logits are recomputed in the backward
+    instead of kept (the reference's ``jax.checkpoint``), so no more than
+    one chunk's (B, chunk, V) f32 logits live at a time."""
+    S = x.shape[1]
+    csize = cfg.loss_chunk if cfg.loss_chunk and S % cfg.loss_chunk == 0 else S
+    if csize == S:
+        return _chunk_ce(x, labels, head, cfg.vocab_size)
+    recompute = torch.is_grad_enabled()
+    parts = []
+    for c0 in range(0, S, csize):
+        args = (x[:, c0:c0 + csize], labels[:, c0:c0 + csize], head,
+                cfg.vocab_size)
+        parts.append(checkpoint(_chunk_ce, *args, use_reentrant=False)
+                     if recompute else _chunk_ce(*args))
+    return torch.cat(parts, dim=1)
+
+
 def _logits_full(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits (B, V) in f32."""
     logits = x.float() @ head.float().T
@@ -292,31 +340,41 @@ def _vision_kv(params, vision_embeds, cfg: ModelConfig):
     return (vision_embeds @ params["vision_proj"]).to(params["vision_proj"].dtype)
 
 
+def _maybe_remat(cfg: ModelConfig, mode: str) -> Callable:
+    """``call(fn, *args, **kw)``: ``fn``'s activations recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant) in the train mode
+    with ``cfg.remat`` under autograd; a plain call otherwise."""
+    if mode != "train" or not cfg.remat or not torch.is_grad_enabled():
+        return lambda fn, *a, **kw: fn(*a, **kw)
+    return lambda fn, *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    mode: str = "train", positions=None, cache=None,
                    cache_len=None, vision_stream=None, start_pos=None):
     """Run all blocks. x: (B,S,d) embeddings.  Returns (x, aux, new_cache):
-    aux is the sum of the MoE blocks' router losses (f32, 0 without)."""
+    aux is the sum of the MoE blocks' router losses (f32, 0 without).
+    ``mode``: "train" (no cache; remat per ``cfg.remat``), "prefill" or
+    "decode"."""
     _check_family(cfg)
     rolling = cfg.sliding_window is not None and mode == "decode"
     keep = mode in ("decode", "prefill")
     decode = mode == "decode"
+    remat = _maybe_remat(cfg, mode)
     auxes = []
     new_cache: Dict[str, Any] = {}
 
     def block(p, x, **kw):
-        x, aux, nc = _attn_block(p, x, cfg, positions=positions, mode=mode,
-                                 start_pos=start_pos, **kw)
-        if aux is not None:
-            auxes.append(aux)
-        return x, nc
+        return _attn_block(p, x, cfg, positions=positions, mode=mode,
+                           start_pos=start_pos, **kw)
 
     if cfg.family in _UNIFORM:
         ks, vs = [], []
-        for i in range(cfg.n_layers):
+        for i, p in enumerate(_layers(params["blocks"])):
             kvc = (cache["k"][i], cache["v"][i]) if decode else None
-            x, nc = block(_index(params["blocks"], i), x, kv_cache=kvc,
-                          cache_len=cache_len, rolling=rolling)
+            x, aux, nc = remat(block, p, x, kv_cache=kvc, cache_len=cache_len,
+                               rolling=rolling)
+            auxes.append(aux)
             if nc is not None:
                 ks.append(nc[0])
                 vs.append(nc[1])
@@ -325,9 +383,9 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     elif cfg.family == "ssm":
         hs, convs = [], []
-        for i in range(cfg.n_layers):
+        for i, p in enumerate(_layers(params["blocks"])):
             c = {"h": cache["h"][i], "conv": cache["conv"][i]} if decode else None
-            x, nc = _ssm_block(_index(params["blocks"], i), x, cfg, mode, c)
+            x, nc = _ssm_block(p, x, cfg, mode, c)
             if nc is not None:
                 hs.append(nc["h"])
                 convs.append(nc["conv"])
@@ -335,21 +393,26 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = {"h": torch.stack(hs), "conv": torch.stack(convs)}
 
     elif cfg.family == "hybrid":
-        segs = segment_counts(cfg)
         shared_p = params["shared_attn"]
         clen = cache_len if cache_len is not None else 0
-        hs, convs, ks, vs = [], [], [], []
-        for gi in range(segs["groups"]):
+
+        def group(ssm_ps, x, gi):
             g_h, g_conv = [], []
-            for ii in range(segs["ssm_per_group"]):
+            for ii, p in enumerate(ssm_ps):
                 c = {"h": cache["h"][gi, ii], "conv": cache["conv"][gi, ii]} \
                     if decode else None
-                x, nc = _ssm_block(_index(params["ssm"], gi, ii), x, cfg, mode, c)
+                x, nc = _ssm_block(p, x, cfg, mode, c)
                 if nc is not None:
                     g_h.append(nc["h"])
                     g_conv.append(nc["conv"])
             kvc = (cache["k"][gi], cache["v"][gi]) if decode else None
-            x, nc = block(shared_p, x, kv_cache=kvc, cache_len=clen)
+            x, aux, nc = block(shared_p, x, kv_cache=kvc, cache_len=clen)
+            return x, aux, (g_h, g_conv, nc)
+
+        hs, convs, ks, vs = [], [], [], []
+        for gi, g_tree in enumerate(_layers(params["ssm"])):
+            x, aux, (g_h, g_conv, nc) = remat(group, _layers(g_tree), x, gi)
+            auxes.append(aux)
             if keep:
                 hs.append(torch.stack(g_h))
                 convs.append(torch.stack(g_conv))
@@ -360,23 +423,28 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                          "k": torch.stack(ks), "v": torch.stack(vs)}
 
     else:  # vlm
-        segs = segment_counts(cfg)
         clen = cache_len if cache_len is not None else 0
-        ks, vs = [], []
-        for gi in range(segs["groups"]):
-            g_k, g_v = [], []
-            for ii in range(segs["self_per_group"]):
+
+        def group(self_ps, pc, x, gi):
+            g_k, g_v, g_aux = [], [], []
+            for ii, p in enumerate(self_ps):
                 kvc = (cache["k"][gi, ii], cache["v"][gi, ii]) if decode else None
-                x, nc = block(_index(params["self"], gi, ii), x, kv_cache=kvc,
-                              cache_len=clen)
+                x, aux, nc = block(p, x, kv_cache=kvc, cache_len=clen)
+                g_aux.append(aux)
                 if nc is not None:
                     g_k.append(nc[0])
                     g_v.append(nc[1])
             # cross-attention over the vision stream, projected per block
-            pc = _index(params["cross"], gi)
             kc = torch.einsum("bpd,dhk->bphk", vision_stream, pc["wk"])
             vc = torch.einsum("bpd,dhk->bphk", vision_stream, pc["wv"])
-            x, _ = block(pc, x, ext_kv=(kc, vc))
+            x, aux, _ = block(pc, x, ext_kv=(kc, vc))
+            return x, _sum_aux(g_aux + [aux], x.device), (g_k, g_v)
+
+        ks, vs = [], []
+        for gi, (s_tree, pc) in enumerate(zip(_layers(params["self"]),
+                                              _layers(params["cross"]))):
+            x, aux, (g_k, g_v) = remat(group, _layers(s_tree), pc, x, gi)
+            auxes.append(aux)
             if keep:
                 ks.append(torch.stack(g_k))
                 vs.append(torch.stack(g_v))
@@ -384,9 +452,14 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = sum(auxes) if auxes else torch.zeros((), dtype=torch.float32,
-                                               device=x.device)
-    return x, aux, new_cache
+    return x, _sum_aux(auxes, x.device), new_cache
+
+
+def _sum_aux(auxes, device) -> torch.Tensor:
+    """The router losses that are not None, summed; f32 0 without one."""
+    auxes = [a for a in auxes if a is not None]
+    return sum(auxes) if auxes else torch.zeros((), dtype=torch.float32,
+                                                device=device)
 
 
 # ==========================================================================
@@ -413,6 +486,29 @@ def _logits(last: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
         return torch.stack([_logits_full(last, params["lm_head"][cb], cfg)
                             for cb in range(cfg.n_codebooks)], dim=1)
     return _logits_full(last, params["lm_head"], cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy plus 0.01 times the MoE router loss.
+
+    batch: {"tokens": (B,S) int, "labels": (B,S) int} (audio:
+    {"frames": (B,S,d), "labels": (B,n_codebooks,S)}, the mean of the
+    codebooks' losses; vlm adds {"vision_embeds": (B,P,vision_dim)}), on
+    the parameters' device.  Returns (loss, {"ce", "aux"}), 0-d f32."""
+    x, vision = _embed_batch(params, batch, cfg)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, aux, _ = forward_hidden(params, x, cfg, mode="train",
+                               positions=positions, vision_stream=vision)
+    if cfg.n_codebooks:
+        losses = [_vocab_ce(x, params["lm_head"][cb], batch["labels"][:, cb],
+                            cfg).mean() for cb in range(cfg.n_codebooks)]
+        ce = sum(losses) / cfg.n_codebooks
+    else:
+        ce = _vocab_ce(x, params["lm_head"], batch["labels"], cfg).mean()
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def prefill(params: Params, batch, cfg: ModelConfig):

@@ -445,3 +445,168 @@ def test_new_family_smoke_prefill_runs_fa_kernel(dev, arch, over, n_fa, dtype):
     tol = 1e-4 if dtype == "float32" else 5e-2
     scale = max(1.0, float(want.abs().max()))
     assert float((logits.cpu() - want).abs().max()) <= tol * scale
+
+
+# -- the flash-attention backward kernel ------------------------------------
+# Its edges (B, H, Hkv, S, T, D, window, q_offset, causal): every head dim,
+# ragged S and T, GQA and MQA, a window, S < T with q_offset, S > T, the
+# vision cross-attention's T = 1601 (non-causal), and rows whose every key
+# is masked (q_offset < 0; a window past T), which the kernel differentiates
+# as the forward kernel computes them (fa_backward_plain with kv_tile).
+FA_BWD_EDGES = [
+    *[(1, 2, 1, 129, 200, d, None, 0, True) for d in (16, 32, 48, 64, 80,
+                                                      96, 112, 128)],
+    (2, 4, 2, 96, 160, 32, None, 0, True),
+    (1, 8, 1, 128, 128, 64, None, 0, True),
+    (2, 4, 4, 1, 1, 80, None, 0, True),
+    (1, 4, 4, 200, 200, 96, 48, 0, True),
+    (1, 2, 1, 77, 300, 128, None, 223, True),
+    (1, 4, 4, 300, 77, 128, None, 0, True),
+    (1, 2, 2, 100, 1601, 80, None, 0, False),
+    (1, 2, 1, 70, 70, 16, None, -3, True),
+    (1, 2, 2, 300, 100, 16, 30, 0, False),
+]
+
+
+def _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, seed):
+    """q, k, v, do as (B, H, rows, D) views of (B, rows, H, D) tensors, the
+    model's layout; do as the transpose of another layout still."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,window,q_offset,causal", FA_BWD_EDGES)
+def test_fa_backward_kernel_equals_plain_on_card(dev, dtype, B, H, Hkv, S, T,
+                                                 D, window, q_offset, causal):
+    """dq, dk, dv of the kernel against fa_backward_plain on the kernel
+    forward's output: f32 within 2e-5 + 2e-5·|plain|, bf16 within
+    2e-2 + 2e-2·|plain| (the forward's tolerances), in the inputs' dtypes
+    and layouts."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, S * 13 + T + D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o = fa.flash_attention(q, k, v, **kw)
+    before = fa.bwd_launch_count()
+    got = fa.fa_backward(q, k, v, o, do, **kw)
+    assert fa.bwd_launch_count() == before + 1
+    want = fa.fa_backward_plain(q, k, v, o, do, kv_tile=fa.KV_TILE[dtype], **kw)
+    torch.cuda.synchronize()
+    tol = FA_TOL[dtype]
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.stride() == x.stride()
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_autograd_runs_both_kernels_on_card(dev):
+    """With inputs that require grad, flash_attention on the card is one
+    forward launch and, at .backward(), one backward launch whose gradients
+    equal a direct fa_backward call's bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _bwd_inputs(dev, dtype, 2, 8, 2, 130, 130, 96, 7)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        f0, b0 = fa.launch_count(), fa.bwd_launch_count()
+        out = fa.flash_attention(*leaves, causal=True, window=None)
+        out.backward(do)
+        assert (fa.launch_count() - f0, fa.bwd_launch_count() - b0) == (1, 1)
+        want = fa.fa_backward(q, k, v, out.detach(), do)
+        torch.cuda.synchronize()
+        for t, w in zip(leaves, want):
+            assert torch.equal(t.grad, w)
+
+
+def test_kernels_without_a_backward_refuse_autograd_on_card(dev):
+    """ssd_scan and sw_batch have no backward kernel: under autograd on the
+    card they raise instead of returning a result with no gradient."""
+    from repro_torch.kernels import smith_waterman as sw
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dt, A, B, C, _ = _ssd_inputs(dev, 1, 64, 2, 8, 16, torch.float32, 1, False)
+    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
+        ssd.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=32)
+    with torch.no_grad():
+        ssd.ssd_scan(x, dt, A, B, C, chunk=32)
+    prof, q_len = ops.build_profile(_codes(np.random.default_rng(0), 40).to(dev),
+                                    ops.BLOSUM50.to(dev))
+    subj = _codes(np.random.default_rng(1), 64).to(dev)[None]
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        sw.sw_batch(prof.requires_grad_(), subj, gap_open=10.0,
+                    gap_extend=2.0, q_len=q_len)
+
+
+# -- training on the card -----------------------------------------------------
+def _grad_leaves(params, batch, cfg):
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.tree import tree_leaves
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+    return float(loss), tree_leaves(grads)
+
+
+@pytest.mark.parametrize("arch,n_fa", [("phi3-mini-3.8b", 2),
+                                       ("mixtral-8x7b", 2),
+                                       ("llama-3.2-vision-90b", 10),
+                                       ("musicgen-medium", 2)])
+def test_train_step_on_card_equals_cpu(dev, arch, n_fa):
+    """The smoke model's loss and gradients on the card (every attention
+    block through the FA kernel forward and backward, remat on) against
+    the plain path on the CPU with the same weights and batch, in f32: the
+    loss within 1e-4, each gradient leaf within 1e-4 of its largest |g| (the
+    CPU parity tests' limit against JAX).  Then one make_train_step on the
+    card: FA forward launches twice per block (the forward and the remat
+    recompute), one backward launch per block, finite metrics that match
+    the CPU step's."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].smoke().replace(dtype="float32", remat=True)
+    params = init_params(cfg, 0, device="cpu")
+    np_batch = SyntheticLM(cfg, 2, 32, seed=1)(0)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+    dev_params, dev_batch = _to(params, dev), _to(cpu_batch, dev)
+    want_loss, want = _grad_leaves(params, cpu_batch, cfg)
+    got_loss, got = _grad_leaves(dev_params, dev_batch, cfg)
+    assert abs(got_loss - want_loss) <= 1e-4 * max(1.0, abs(want_loss))
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=1)
+    f0, b0 = fa.launch_count(), fa.bwd_launch_count()
+    _, _, m = step(dev_params, adamw_init(dev_params), dev_batch)
+    torch.cuda.synchronize()
+    assert fa.launch_count() - f0 == 2 * n_fa
+    assert fa.bwd_launch_count() - b0 == n_fa
+    _, _, m_cpu = step(params, adamw_init(params), cpu_batch)
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        assert torch.isfinite(m[key]).all()
+        assert abs(float(m[key]) - float(m_cpu[key])) <= 1e-4 * max(
+            1.0, abs(float(m_cpu[key]))), key
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssm_families_refuse_training_on_card(dev, arch):
+    """The SSD kernel has no backward yet: training the ssm and hybrid
+    families on the card raises, naming it, instead of dropping the
+    gradient; their prefill still runs."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, prefill
+    from repro_torch.optim import adamw_init
+    cfg = ARCHS[arch].smoke().replace(dtype="float32")
+    params = init_params(cfg, 0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLM(cfg, 2, 32, seed=1)(0).items()}
+    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
+        make_train_step(cfg)(params, adamw_init(params), batch)
+    with torch.no_grad():
+        logits, _ = prefill(params, {"tokens": batch["tokens"]}, cfg)
+    assert torch.isfinite(logits).all()

@@ -21,7 +21,13 @@ PORT_MODULES = [
     "repro_torch.configs", "repro_torch.models", "repro_torch.models.config",
     "repro_torch.models.layers", "repro_torch.models.attention",
     "repro_torch.models.ssm", "repro_torch.models.model",
-    "repro_torch.launch.serve",
+    "repro_torch.launch.serve", "repro_torch.launch.steps",
+    "repro_torch.launch.train", "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.optim.compression",
+    "repro_torch.optim.accumulate", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.runtime",
+    "repro_torch.runtime.checkpoint", "repro_torch.runtime.fault",
+    "repro_torch.tree",
 ]
 
 

@@ -164,7 +164,7 @@ def test_blocked_smith_waterman_wavefront_equals_both_kernels(qlen, dlen, tile, 
 def test_blocked_tiles_carry_the_corner():
     """A diagonal-only alignment that crosses a tile corner: the score must
     flow through H[r0-1, c0-1], which no direct dependency computes."""
-    seq = ops.encode_seq("WWWWWWWW").numpy()           # W·W = 15 in BLOSUM50
+    seq = ops.encode_seq("WWWWWWWW", device="cpu").numpy()           # W·W = 15 in BLOSUM50
     best = _blocked_sw(seq, seq, 4, 10.0, 2.0, nworkers=2)
     assert best == 15.0 * 8
     assert best == float(ops.smith_waterman(seq, seq, tile=64, device="cpu"))

@@ -30,6 +30,7 @@ from repro_torch.launch.serve import ServeEngine
 from repro_torch.models import config as tconfig
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 init_params_spec, prefill)
+from repro_torch.tree import tree_leaves_with_path
 
 CPU = "cpu"
 SLICE = ["zamba2-2.7b", "mamba2-130m", "phi3-mini-3.8b", "deepseek-coder-33b",
@@ -170,16 +171,15 @@ def test_init_params_has_the_reference_tree(arch):
     """Keys, shapes and dtypes of the port's ``init_params`` (and of its
     meta-device spec) equal the reference's tree, in the working bf16."""
     jcfg, cfg = JARCHS[arch].smoke(), ARCHS[arch].smoke()
-    want = {"/".join(str(getattr(k, "key", k)) for k in path):
-            (tuple(leaf.shape), str(leaf.dtype))
+    want = {jax.tree_util.keystr(path): (tuple(leaf.shape), str(leaf.dtype))
             for path, leaf in jax.tree_util.tree_flatten_with_path(
                 jax.eval_shape(lambda: jinit(jcfg, jax.random.PRNGKey(0))))[0]}
-    got = dict(convert._flat(init_params(cfg, 0, device=CPU)))
+    got = dict(tree_leaves_with_path(init_params(cfg, 0, device=CPU)))
     got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
            for k, v in got.items()}
     assert got == want
     spec = {k: (s, str(d).removeprefix("torch."))
-            for k, (s, d) in convert._flat(init_params_spec(cfg))}
+            for k, (s, d) in tree_leaves_with_path(init_params_spec(cfg))}
     assert spec == want
 
 
@@ -248,15 +248,16 @@ def test_stacked_init_draws_in_the_same_order_in_every_dtype():
     rely on this), and the stacked leaves are filled, not left empty."""
     for arch in ("mixtral-8x7b", "llama-3.2-vision-90b", "zamba2-2.7b"):
         cfg = ARCHS[arch].smoke()
-        bf = dict(convert._flat(init_params(cfg, 7, device=CPU)))
-        f32 = dict(convert._flat(init_params(cfg.replace(dtype="float32"), 7,
-                                             device=CPU)))
+        bf = dict(tree_leaves_with_path(init_params(cfg, 7, device=CPU)))
+        f32 = dict(tree_leaves_with_path(init_params(cfg.replace(dtype="float32"),
+                                                     7, device=CPU)))
         assert bf.keys() == f32.keys()
         for k in bf:
             assert torch.equal(bf[k], f32[k].to(bf[k].dtype)), (arch, k)
             assert bool(torch.isfinite(f32[k]).all()), (arch, k)
         leaf = next(v for k, v in f32.items()
-                    if k.startswith(("blocks/", "self/", "ssm/")) and v.dim() > 3)
+                    if k.startswith(("['blocks']", "['self']", "['ssm']"))
+                    and v.dim() > 3)
         assert not torch.equal(leaf[0], leaf[-1])       # distinct draws per layer
 
 

@@ -55,7 +55,7 @@ def test_blosum50_matches_reference():
 
 def test_encode_seq_matches_reference():
     seq = "HEAGAWGHEEjoz*"
-    assert ops.encode_seq(seq).tolist() == np.asarray(jops.encode_seq(seq)).tolist()
+    assert ops.encode_seq(seq, device=CPU).tolist() == np.asarray(jops.encode_seq(seq)).tolist()
 
 
 @pytest.mark.parametrize("qlen", [1, 24, 128, 129, 300])
@@ -71,7 +71,7 @@ def test_build_profile_matches_reference(qlen):
 
 def test_sw_known_alignment():
     """Identical sequences: score == sum of diagonal substitution scores."""
-    seq = ops.encode_seq("HEAGAWGHEE")
+    seq = ops.encode_seq("HEAGAWGHEE", device=CPU)
     diag = float(sum(ops.BLOSUM50[c, c] for c in seq.tolist()))
     got = float(ops.smith_waterman(seq, seq, tile=64, device=CPU))
     jseq = jops.encode_seq("HEAGAWGHEE")
@@ -79,7 +79,7 @@ def test_sw_known_alignment():
 
 
 def test_sw_empty_overlap_zero():
-    a, b = ops.encode_seq("AAAA"), ops.encode_seq("WWWW")  # A-W = -3
+    a, b = ops.encode_seq("AAAA", device=CPU), ops.encode_seq("WWWW", device=CPU)  # A-W = -3
     assert float(ops.smith_waterman(a, b, tile=64, device=CPU)) == 0.0
     assert float(jops.smith_waterman(jops.encode_seq("AAAA"),
                                      jops.encode_seq("WWWW"), tile=64)) == 0.0
@@ -225,11 +225,20 @@ def test_wrapper_rejects_wrong_types():
 def test_default_device_is_the_card_no_cpu_path(monkeypatch):
     """device=None means CUDA; without a card it raises, never runs on CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    q = ops.encode_seq("HEAGAWGHEE")
+    q = ops.encode_seq("HEAGAWGHEE", device=CPU)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.smith_waterman(q, q)
     with pytest.raises(RuntimeError):
         convert.matrix_from_numpy(np.asarray(jops.BLOSUM50))
+
+
+def test_encode_seq_defaults_to_the_card(monkeypatch):
+    """encode_seq resolves device=None to CUDA, as every entry point does:
+    without a card it raises instead of returning a CPU tensor."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.encode_seq("HEAGAWGHEE")
+    assert ops.encode_seq("HEAGAWGHEE", device=CPU).device.type == "cpu"
 
 
 def test_launch_count_loses_no_update_across_threads():
