@@ -59,10 +59,12 @@ Phases, each on lines of its own; any failed check exits non-zero:
      consistency check at a cut depth (Mixtral 2 layers over 4608 tokens,
      past its window; Llama-Vision one period of 5 layers; MusicGen all 48);
   10. training: the flash-attention backward kernel (three CUDA kernels
-      per call, counted as one launch) against its plain version on its
-      edges and at Phi-3's shape, with kernel, plain, bound and library
-      (SDPA's backward) times; Phi-3-mini-3.8B trained at full width (all
-      32 layers, bf16 parameters, f32 moments, remat) through
+      per call, counted as one launch; bf16 on wgmma with TMA loads,
+      reading the softmax statistics the forward saved) against its plain
+      version on its edges and at Phi-3's shape, the forward's statistics
+      against theirs, with kernel, plain, bound and library (SDPA's
+      backward) times and the split by kernel; Phi-3-mini-3.8B trained at
+      full width (all 32 layers, bf16 parameters, f32 moments, remat) through
       ``launch.train.train``, 5 steps of 2 x 4096 tokens: per-step ms,
       tokens/s, share of the FLOP bound, FA launches (64 forward with the
       remat recompute, 32 backward a step), the device time by part and
@@ -609,13 +611,14 @@ def within(got, want, tol):
 
 def kernel_name(mangled):
     """``sw_warp_kernel<32>`` from ptxas's mangled entry name: the first
-    length-prefixed identifier ending in ``kernel``, with its integer
-    template arguments."""
+    length-prefixed identifier ending in ``kernel``, with its integer and
+    bool template arguments."""
     for m in re.finditer(r"\d+", mangled):
         name = mangled[m.end():m.end() + int(m.group())]
         if name.endswith("kernel") and name.isidentifier():
             rest = mangled[m.end() + len(name):].split("EEv")[0]
-            args = re.findall(r"Li(\d+)E", rest)
+            args = [v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E", rest)]
             return name + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
@@ -1479,6 +1482,11 @@ TRAIN_CUT = dict(layers=2, batch=1, seq=2048)
 RESTART = dict(steps=5, ckpt_every=2, fail_at=3)
 RESTART_TOL = 1e-4            # final loss, restarted against uninterrupted
 FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+FA_BWD_KERNELS = 3            # kernels a backward launch runs (both dtypes)
+# The bf16 forward's saved statistics (m in base 2, 1/l) against
+# fa_stats_plain (f32 products of the same inputs): the sums run in
+# another order and exp2 is the approximate one.
+STATS_TOL = 1e-5
 # The JAX package has no backward kernel: XLA differentiates the model's
 # chunked_attention, whose gradient this kernel computes on the card.
 FA_BWD_REPLACES = "src/repro/models/attention.py:81"
@@ -1513,9 +1521,10 @@ TRAIN_SPANS = ("train.adamw", "train.ce")    # profiler ranges of the step split
 
 
 def free_device_memory():
-    """Free what earlier models left: a finished ``ServeEngine`` holds its
-    parameters in a reference cycle (engine, farm, bound methods) that
-    only the garbage collector breaks, which may not have run yet."""
+    """Return what earlier models left to the card: the allocator's cached
+    blocks.  A finished ``ServeEngine`` goes with its last reference (its
+    serving graph holds it weakly); the collector still runs first, for
+    any other cycle an earlier phase may have left around a tensor."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1553,20 +1562,62 @@ def _bf16_main_check(got, want):
     return out
 
 
+def _bwd_split(call, reps=50):
+    """(each backward kernel's share of the profiled device time, the
+    profiled device ms of the ``reps`` calls) from torch.profiler.  A
+    window of a few calls can lose most of its device records, so the
+    window is long and the caller reports the coverage beside the shares."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        name = re.search(r"fa_bwd_\w*kernel", ev.key)
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if name and us:
+            split[name.group()] = split.get(name.group(), 0.0) + us
+    total = sum(split.values())
+    return {name: us / total for name, us in split.items()}, total / 1e3
+
+
 def phase_fa_backward(dev, fa):
     """The FA backward kernel against fa_backward_plain on its edges (both
-    dtypes) and at Phi-3's shape, then kernel, plain, bound and library
+    dtypes; bf16 through the wgmma kernels with the statistics the forward
+    saved) and at Phi-3's shape, where the forward's statistics are also
+    held against fa_stats_plain; then kernel, plain, bound and library
     (SDPA's backward through autograd) times at that shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_o = 0.0
     main = {}
     cases = [(dt, e) for e in FA_BWD_EDGES for dt in (torch.float32, torch.bfloat16)]
     for i, (dtype, edge) in enumerate(cases):
         B, H, Hkv, S, T, D, window, q_offset, causal = edge
         q, k, v, do = _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, 70 + i)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        o = fa.flash_attention(q, k, v, **kw)
-        got = fa.fa_backward(q, k, v, o, do, **kw)
+        if dtype == torch.bfloat16:
+            # the forward instance that writes the statistics (the train
+            # step's) is held to the plain forward over the same tiles and
+            # to the inference instance, bit for bit
+            o, stats = fa.fa_forward_with_stats(q, k, v, **kw)
+            o_plain = fa.fa_plain(q, k, v, kv_tile=fa.KV_TILE[dtype], **kw)
+            same = torch.equal(o, fa.flash_attention(q, k, v, **kw))
+            oerr, ook = within(o, o_plain, FA_TOL[dtype])
+            check(ook and same,
+                  f"FA forward writing the statistics at B={B} H={H} "
+                  f"Hkv={Hkv} S={S} T={T} D={D} window={window} "
+                  f"q_offset={q_offset} causal={causal}: o against fa_plain "
+                  f"max |diff| {oerr} (tol 2e-2 + 2e-2*|plain|), equal to "
+                  f"the inference launch: {same}")
+            worst_o = max(worst_o, oerr)
+            if edge == FA_BWD_MAIN:
+                main["bf16 o"] = oerr
+            del o_plain
+        else:
+            o, stats = fa.flash_attention(q, k, v, **kw), None
+        got = fa.fa_backward(q, k, v, o, do, stats=stats, **kw)
         want = fa.fa_backward_plain(q, k, v, o, do, kv_tile=fa.KV_TILE[dtype], **kw)
         torch.cuda.synchronize()
         for name, g, w, x in zip("qkv", got, want, (q, k, v)):
@@ -1581,22 +1632,42 @@ def phase_fa_backward(dev, fa):
                 main[f"{key} d{name}"] = err
         if edge == FA_BWD_MAIN and dtype == torch.bfloat16:
             main.update(_bf16_main_check(got, want))
-        del q, k, v, do, o, got, want
+            plain_stats = fa.fa_stats_plain(q, k, kv_tile=fa.KV_TILE[dtype], **kw)
+            serr, sok = within(stats, plain_stats, STATS_TOL)
+            print(f"fa forward statistics at Phi-3's shape (m in base 2, 1/l, "
+                  f"{stats.numel()} values) against fa_stats_plain: max |diff| "
+                  f"{serr:.3e} (tol {STATS_TOL} + {STATS_TOL}*|plain|)", flush=True)
+            check(sok, f"FA forward statistics != plain at Phi-3's shape: {serr}")
+            main["bf16 stats"] = serr
+            del plain_stats
+        del q, k, v, do, o, got, want, stats
     print(f"fa backward kernel == plain on {len(cases)} cases (every head dim, "
           f"GQA/MQA, window, q_offset, S > T, T = 1601, rows with every key "
           f"masked, and Phi-3's shape), gradients in the inputs' dtypes and "
           f"layouts; max |err| f32 {worst['float32']:.3e} (tol 2e-5 + "
-          f"2e-5*|plain|), bf16 {worst['bfloat16']:.3e} (tol 2e-2 + "
-          f"2e-2*|plain|)", flush=True)
+          f"2e-5*|plain|, SIMT), bf16 {worst['bfloat16']:.3e} (tol 2e-2 + "
+          f"2e-2*|plain|, wgmma)", flush=True)
+    print(f"fa forward writing the statistics == plain on the "
+          f"{len(FA_BWD_EDGES)} bf16 cases (Phi-3's shape included): o max "
+          f"|err| {worst_o:.3e} against fa_plain over the kernel's kv tiles "
+          f"(tol 2e-2 + 2e-2*|plain|), and equal bit for bit to the "
+          f"inference launch on every case", flush=True)
 
     B, H, Hkv, S, T, D, causal, window = FA_BWD_SHAPE
     q, k, v, do = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, S, T, D, 9)
-    o = fa.flash_attention(q, k, v, causal=causal)
-    kern = cuda_ms(lambda: fa.fa_backward(q, k, v, o, do, causal=causal),
-                   iters=5, warmup=1)
+    o, stats = fa.fa_forward_with_stats(q, k, v, causal=causal)
+    fwd = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                  iters=10, warmup=2)
+    fwd_stats = cuda_ms(lambda: fa.fa_forward_with_stats(q, k, v, causal=causal),
+                        iters=10, warmup=2)
+    kern = cuda_ms(lambda: fa.fa_backward(q, k, v, o, do, causal=causal,
+                                          stats=stats), iters=10, warmup=2)
     plain = cuda_ms(lambda: fa.fa_backward_plain(
-        q, k, v, o, do, causal=causal, kv_tile=fa.KV_TILE[torch.bfloat16]),
-        iters=2, warmup=1)
+        q, k, v, o, do, causal=causal, kv_tile=fa.KV_TILE[torch.bfloat16],
+        stats=stats), iters=2, warmup=1)
+    split_reps = 50
+    split, prof_ms = _bwd_split(lambda: fa.fa_backward(
+        q, k, v, o, do, causal=causal, stats=stats), split_reps)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     lib_ms, reps = 0.0, 5
@@ -1614,6 +1685,7 @@ def phase_fa_backward(dev, fa):
             t.grad = None
     pairs = fa_pairs(S, T, causal, window)
     flop = 5 * 2 * B * H * D * pairs
+    flop7 = 7 * 2 * B * H * D * pairs
     t_ops = flop / PEAK_BF16
     nbytes = 2 * (3 * B * H * S * D + 2 * B * Hkv * T * D     # q, o, do; k, v
                   + B * H * S * D + 2 * B * Hkv * T * D)      # dq; dk, dv
@@ -1622,17 +1694,33 @@ def phase_fa_backward(dev, fa):
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                err=max(worst.values()), worst=worst, main_shape=main,
+               forward_with_stats_err=worst_o,
+               split_share=split, split_coverage=prof_ms / (split_reps * kern),
+               forward_ms=fwd, forward_with_stats_ms=fwd_stats,
+               tflops_7=flop7 / (kern * 1e-3) / 1e12,
                shape=f"B={B} H={H} Hkv={Hkv} S={S} T={T} D={D} causal bf16")
-    print(f"timing fa backward {row['shape']}: kernel {kern:.4f} ms (3 "
-          f"launches, SIMT f32), plain {plain:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: 5 products, "
+    print(f"timing fa backward {row['shape']}: kernel {kern:.4f} ms (one "
+          f"launch of {FA_BWD_KERNELS} kernels, wgmma), plain {plain:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: 5 products, "
           f"{flop / 1e9:.2f} GFLOP at 989 TFLOP/s bf16; bytes "
-          f"{t_bytes * 1e3:.4f} ms), {flop / (kern * 1e-3) / 1e12:.2f} TFLOP/s "
-          f"of the 5 products, {row['bound_ms'] / kern:.4f} of the bound; "
-          f"library scaled_dot_product_attention(is_causal=True) backward "
-          f"through autograd {lib_ms:.4f} ms (the kernel takes "
-          f"{kern / lib_ms:.2f}x its time)", flush=True)
-    del q, k, v, do, o, leaves, out
+          f"{t_bytes * 1e3:.4f} ms), {row['tflops_7']:.2f} TFLOP/s of the 7 "
+          f"products it runs ({flop7 / 1e9:.2f} GFLOP), "
+          f"{flop / (kern * 1e-3) / 1e12:.2f} TFLOP/s of the 5, "
+          f"{row['bound_ms'] / kern:.4f} of the 5-product bound; library "
+          f"scaled_dot_product_attention(is_causal=True) backward through "
+          f"autograd {lib_ms:.4f} ms (the kernel takes {kern / lib_ms:.2f}x "
+          f"its time)", flush=True)
+    print(f"fa backward kernels at Phi-3's shape (share of the device time "
+          f"torch.profiler saw over {split_reps} calls, "
+          f"{prof_ms / (split_reps * kern):.4f} of their event-timed "
+          f"{split_reps * kern:.3f} ms; times the event-timed "
+          f"call): " + (", ".join(
+              f"{n} {share:.4f} ({share * kern:.4f} ms)"
+              for n, share in split.items())
+              or "no device time seen (not measured)")
+          + f"; forward {fwd:.4f} ms without the statistics, "
+          f"{fwd_stats:.4f} ms writing them", flush=True)
+    del q, k, v, do, o, stats, leaves, out
     torch.cuda.empty_cache()
     return row
 
@@ -1993,7 +2081,10 @@ def main():
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 launches_per=f"one prefill of each path and {TRAIN_STEPS} "
                              f"phi3 train steps (forward and remat recompute)",
-                max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes)),
+                max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes),
+                                training["bwd_row"]["forward_with_stats_err"]),
+                forward_with_stats_max_abs_err=training["bwd_row"][
+                    "forward_with_stats_err"],
                 shapes=[{k: x[k] for k in ("path", "shape", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
                                            "library")} for x in shapes])
@@ -2006,7 +2097,12 @@ def main():
                          "package has no backward kernel",
         "launches": training["fa_bwd"],
         "launches_by_path": {"phi3 train": training["fa_bwd"]},
-        "launches_per": f"{TRAIN_STEPS} phi3 train steps (3 kernels a launch)",
+        "launches_per": f"{TRAIN_STEPS} phi3 train steps",
+        "kernels_per_launch": FA_BWD_KERNELS,
+        "kernels": "bf16: fa_bwd_delta_kernel, fa_bwd_dkdv_wgmma_kernel, "
+                   "fa_bwd_dq_wgmma_kernel (wgmma + TMA, the forward's "
+                   "statistics); f32: fa_bwd_stats_kernel, fa_bwd_dkdv_kernel, "
+                   "fa_bwd_dq_kernel (SIMT)",
         "max_abs_err": r["err"], "max_abs_err_by_type": r["worst"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2014,6 +2110,10 @@ def main():
                    "through autograd",
         "shape": r["shape"],
         "main_shape_check": r["main_shape"],
+        "split_share": r["split_share"], "split_coverage": r["split_coverage"],
+        "tflops_7_products": r["tflops_7"],
+        "forward_ms": r["forward_ms"],
+        "forward_with_stats_ms": r["forward_with_stats_ms"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

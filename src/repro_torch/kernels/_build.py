@@ -2,16 +2,19 @@
 
 Each source has a plain C interface, so it compiles in seconds without
 PyTorch's headers.  The shared library goes into ``build/repro_torch/`` at
-the root of the checkout (git-ignored), named by a hash of the source and
-the flags, so an edited source never loads a stale build.  The build runs
-once per process, under a lock per source, at the first launch — never at
-import; different sources build concurrently (``load_all``).
+the root of the checkout (git-ignored), named by a hash of the source, the
+local headers it includes (``#include "..."``, e.g. ``csrc/fa_hopper.cuh``)
+and the flags, so an edited source or header never loads a stale build.
+The build runs once per process, under a lock per source, at the first
+launch — never at import; different sources build concurrently
+(``load_all``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 SOURCES = ("smith_waterman", "flash_attention", "flash_attention_bwd",
            "ssd_scan")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOCK = threading.Lock()                      # guards _NAME_LOCKS
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,10 +52,30 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin: cannot build the CUDA kernels")
 
 
+def _inputs(src: Path) -> List[Path]:
+    """``src`` and the local headers it includes, directly or through
+    another header (nvcc looks for them beside the file that includes them)."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo += [path.parent / h for h in _INCLUDE.findall(path.read_text())]
+    return found
+
+
+def _digest(src: Path) -> str:
+    """Hash of the flags, ``src`` and the headers it includes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(src):
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:12]
+
+
 def _build(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    lib = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
     if lib.exists():
         _INFO[name] = (0.0, f"reused {lib}")
         return ctypes.CDLL(str(lib))

@@ -55,6 +55,8 @@
 //     D = 80, 140 KiB per block with the 3-stage ring (224 KiB at D = 128).
 //     (The 128-byte swizzle, with D = 80 padded to 128 columns by TMA's
 //     zero fill, measured no faster and needs 32 KiB a tile.)
+//     The TMA, mbarrier and wgmma helpers live in csrc/fa_hopper.cuh,
+//     shared with the backward kernels.
 //   * Each warpgroup runs Q·Kᵀ, its softmax and P·V of a tile in turn,
 //     waiting for each wgmma group; the two warpgroups of a block (one
 //     block per SM, 167 registers a thread at D = 80) fill each other's
@@ -62,6 +64,16 @@
 //   * Tiles that no row of a warpgroup can see are skipped by that
 //     warpgroup (it still waits for them and releases them); masks are
 //     computed only on tiles that cut the diagonal, the window edge or T.
+//   * Given a `stats` buffer (training), the epilogue also writes each
+//     row's softmax statistics for the backward kernel
+//     (csrc/flash_attention_bwd.cu): two f32 planes of B·H·S values, row
+//     (b·H + h)·S + s, the final running max m in the base-2 domain (the
+//     score times D^-0.5·log2 e, NEG·log2 e where every visited key is
+//     masked or no tile was visited) and 1/l, l = Σ 2^(score - m) over the
+//     visited slots, 0 where l = 0.  m and 1/l stay apart: NEG + log l
+//     would round back to NEG in f32.  The write is a template instance of
+//     its own (STATS), so the kernel without it is the inference path's,
+//     unchanged.
 //
 // float32: `fa_kernel`, on the f32 FMA pipes.  wgmma on f32 inputs would
 // be TF32, which keeps 10 mantissa bits and cannot meet the reference's
@@ -78,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "fa_hopper.cuh"
 
 namespace {
 
@@ -253,266 +267,17 @@ constexpr int WBK = 128;            // kv rows per tile
 constexpr int STAGES = 3;           // K/V ring depth (224 KiB of shared memory at D = 128)
 constexpr int CONSUMERS = 256;      // two warpgroups
 constexpr int WTHREADS = CONSUMERS + 32;   // + the producer warp
-constexpr int CHUNK = 16;           // elements per 32-byte swizzled column chunk
 constexpr float NEG2 = NEG * LOG2E; // a masked score in the base-2 domain
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-d map (d, row, head, batch) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int row, int head,
-                                         int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
-         "r"(row), "r"(head), "r"(batch)
-      : "memory");
-}
-
-// A tile of `rows` x D as D/16 column chunks of rows x 32 bytes: one box each.
-template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head,
-                                         int batch, int rows) {
-#pragma unroll
-  for (int c = 0; c < D / CHUNK; ++c)
-    tma_load(dst + c * rows * 32, map, bar, c * CHUNK, row, head, batch);
-}
-
-// wgmma shared-memory descriptor, 32-byte swizzle (layout type 3).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of an accumulator register
-// across the asynchronous wgmma that writes it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S (64 x BK) += Q (64 x 16) · Kᵀ (16 x BK): m64n128k16, both from shared memory.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// O (64 x N) += P (64 x 16, bf16 registers) · V (16 x N): m64nNk16, V
-// MN-major in shared memory (transposed B).  One instance per head dim.
-template <int N> struct WgmmaPV;
-template <> struct WgmmaPV<16> {
-  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<48> {
-  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<80> {
-  static __device__ __forceinline__ void run(float (&d)[40], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<96> {
-  static __device__ __forceinline__ void run(float (&d)[48], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<112> {
-  static __device__ __forceinline__ void run(float (&d)[56], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaPV<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <int D>
+template <int D, bool STATS>
 __global__ void __launch_bounds__(WTHREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, long long so_b, long long so_h,
-                long long so_r, int H, int group, int S, int Tk,
-                float scale_log2, int causal, int window, int q_offset) {
+                long long so_r, float* __restrict__ stats, int H, int group,
+                int S, int Tk, float scale_log2, int causal, int window,
+                int q_offset) {
   constexpr uint32_t TILE = D * WBQ * 2;      // bytes of one 128-row tile
   constexpr int NCH = D / CHUNK;
   static_assert(WBQ == WBK, "one tile size for Q, K and V");
@@ -650,7 +415,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < WBK / 16; ++kk)
-        WgmmaPV<D>::run(acc, &pf[4 * kk], dv + ((kk * 16 * 32) >> 4));
+        WgmmaRS<D>::run(acc, &pf[4 * kk], dv + ((kk * 16 * 32) >> 4));
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -666,6 +431,20 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, d);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if constexpr (STATS) {
+    if (c == 0) {   // m (base 2) and 1/l, one lane a row
+      float* sm = stats + (long long)bh * S;
+      float* sl = sm + (long long)gridDim.x * S;
+      if (row0 < S) {
+        sm[row0] = m0;
+        sl[row0] = l0 > 0.f ? 1.f / l0 : 0.f;
+      }
+      if (row0 + 8 < S) {
+        sm[row0 + 8] = m1;
+        sl[row0 + 8] = l1 > 0.f ? 1.f / l1 : 0.f;
+      }
+    }
+  }
   __nv_bfloat16* ob = o + b * so_b + h * so_h;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -679,51 +458,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled and cuGetErrorString from libcuda, through the
-// runtime's entry-point query (so the library links no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-typedef CUresult (*ErrorStringFn)(CUresult, const char**);
-
-void* cu_entry_point(const char* name) {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &fn, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
-#endif
-  return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? fn : nullptr;
-}
-
-constexpr int CU_ERR = 1000;   // fa_launch returns 1000 + a CUresult for tensor-map errors
-
-// A 4-d map (d, row, head, batch) of a bf16 tensor; strides in bytes for
-// row, head, batch; boxes of 16 x `box_rows`, 32-byte swizzle, zeros past
-// the edges.
-CUresult make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int D,
-                  int rows, int heads, int batch, long long s_row,
-                  long long s_head, long long s_batch, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_row, (cuuint64_t)s_head,
-                                 (cuuint64_t)s_batch};
-  const cuuint32_t box[4] = {(cuuint32_t)CHUNK, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const Strides& st, int B, int H, int Hkv, int S, int Tk,
-                float scale, int causal, int window, int q_offset,
+                float* stats, const Strides& st, int B, int H, int Hkv, int S,
+                int Tk, float scale, int causal, int window, int q_offset,
                 cudaStream_t stream) {
   static const EncodeTiledFn encode =
       reinterpret_cast<EncodeTiledFn>(cu_entry_point("cuTensorMapEncodeTiled"));
@@ -740,41 +478,43 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (r != CUDA_SUCCESS) return CU_ERR + (int)r;
   const size_t smem = 1024 + (size_t)D * WBQ * 2 * (1 + 2 * STAGES) +
                       8 * (1 + 3 * STAGES);
+  // Without a stats buffer the kernel is compiled without the stats write.
+  auto kernel = stats ? fa_wgmma_kernel<D, true> : fa_wgmma_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (S + WBQ - 1) / WBQ);
-  fa_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.o[0], st.o[1], st.o[2], H,
-      H / Hkv, S, Tk, scale * LOG2E, causal, window, q_offset);
+  kernel<<<grid, WTHREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.o[0], st.o[1], st.o[2],
+      stats, H, H / Hkv, S, Tk, scale * LOG2E, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
 template <bool BF16, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* stats,
            const Strides& st, int B, int H, int Hkv, int S, int Tk, float scale,
            int causal, int window, int q_offset, cudaStream_t s) {
   if (BF16)
-    return launch_bf16<D>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal,
-                          window, q_offset, s);
+    return launch_bf16<D>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale,
+                          causal, window, q_offset, s);
   return (int)launch_f32<D>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal,
                             window, q_offset, s);
 }
 
 template <bool BF16>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               const Strides& st, int B, int H, int Hkv, int S, int Tk,
+               float* stats, const Strides& st, int B, int H, int Hkv, int S, int Tk,
                float scale, int causal, int window, int q_offset,
                cudaStream_t s) {
   switch (D) {
-    case 16: return launch<BF16, 16>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 32: return launch<BF16, 32>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 48: return launch<BF16, 48>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 64: return launch<BF16, 64>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 80: return launch<BF16, 80>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 96: return launch<BF16, 96>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 112: return launch<BF16, 112>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
-    case 128: return launch<BF16, 128>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 16: return launch<BF16, 16>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 32: return launch<BF16, 32>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 48: return launch<BF16, 48>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 64: return launch<BF16, 64>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 80: return launch<BF16, 80>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 96: return launch<BF16, 96>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 112: return launch<BF16, 112>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 128: return launch<BF16, 128>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -787,12 +527,14 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 // q, k and v must be multiples of 8 elements (16 bytes) and the pointers
 // 16-byte aligned, as TMA requires (the wrapper checks).  window <= 0
 // means none.  Returns 0, a cudaError_t, or 1000 + a CUresult of the
-// tensor-map encode.
+// tensor-map encode.  stats: null, or (bfloat16 only) 2·B·H·S floats that
+// receive each row's m (base 2) and 1/l for the backward kernel.
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
-                         int dtype, int B, int H, int Hkv, int S, int Tk, int D,
-                         const long long* strides, float scale, int causal,
-                         int window, int q_offset, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 || Tk <= 0)
+                         float* stats, int dtype, int B, int H, int Hkv, int S,
+                         int Tk, int D, const long long* strides, float scale,
+                         int causal, int window, int q_offset, void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 || Tk <= 0 ||
+      (stats != nullptr && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 3; ++i) {
@@ -803,19 +545,10 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<false>(D, q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    return dispatch_d<false>(D, q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
   if (dtype == 1)
-    return dispatch_d<true>(D, q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    return dispatch_d<true>(D, q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" const char* fa_error_string(int err) {
-  if (err < CU_ERR) return cudaGetErrorString(static_cast<cudaError_t>(err));
-  static const ErrorStringFn error_string =
-      reinterpret_cast<ErrorStringFn>(cu_entry_point("cuGetErrorString"));
-  const char* msg = nullptr;
-  if (!error_string ||
-      error_string(static_cast<CUresult>(err - CU_ERR), &msg) != CUDA_SUCCESS || !msg)
-    return "unknown CUresult";
-  return msg;
-}
+extern "C" const char* fa_error_string(int err) { return cu_error_string(err); }

@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional
 
@@ -211,17 +212,22 @@ class ServeEngine:
         run() cut short by ``max_steps`` or ``max_len`` leaves its batch
         active, and the next run() resumes it."""
         budget = [max_steps]
+        # The graph and its vertices refer to each other, so the graph lives
+        # until the garbage collector runs.  Its closures hold the engine
+        # weakly: a finished engine, and the parameters it holds, go as soon
+        # as the caller drops it.
+        eng = weakref.proxy(self)
 
         def decode_step(task):
             if task is not _TICK:
-                self._pending.append(task)         # admitted on the next tick
+                eng._pending.append(task)          # admitted on the next tick
                 return ("enq",)
-            self._admit()
-            if self.active and self.cache_len < self.max_len and budget[0]:
+            eng._admit()
+            if eng.active and eng.cache_len < eng.max_len and budget[0]:
                 budget[0] -= 1
-                self.step()
-            more = bool(self.active or self._pending or len(self.in_q)) \
-                and self.cache_len < self.max_len and budget[0] > 0
+                eng.step()
+            more = bool(eng.active or eng._pending or len(eng.in_q)) \
+                and eng.cache_len < eng.max_len and budget[0] > 0
             return ("tick", more)
 
         tick_in_flight = [False]                   # touched only by the route

@@ -176,8 +176,8 @@ def test_function_plumbing_on_views(monkeypatch):
     """FlashAttentionFn saves q, k, v and o and returns one gradient per
     input in its layout; on the CPU its two launches are replaced by the
     plain versions, which is what the card's kernels are held to."""
-    monkeypatch.setattr(fa, "_fa_launch", lambda q, k, v, c, w, o: fa.fa_plain(
-        q, k, v, causal=c, window=w, q_offset=o))
+    monkeypatch.setattr(fa, "_fa_launch", lambda q, k, v, c, w, o, stats=None:
+                        fa.fa_plain(q, k, v, causal=c, window=w, q_offset=o))
     monkeypatch.setattr(fa, "fa_backward", fa.fa_backward_plain)
     q, k, v, do, kw = _inputs(CASES["window_gqa"], seed=4)
     qs, ks, vs = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
@@ -199,4 +199,173 @@ def test_backward_plain_keeps_dtypes_and_refuses_the_kernel_on_cpu():
     assert all(g.dtype == torch.bfloat16 for g in
                fa.fa_backward_plain(qt, kt, vt, o, dot))
     with pytest.raises(ValueError, match="runs on CUDA"):
-        fa.fa_backward(qt, kt, vt, o, dot)
+        fa.fa_backward(qt, kt, vt, o, dot, stats=fa.fa_stats_plain(qt, kt))
+
+
+# -- the softmax statistics the bf16 forward kernel saves ------------------
+def _visited_slots(case, kv_tile):
+    """Per q row, the kv slots its 64-row group visits (padding included)."""
+    B, H, Hkv, S, T, D, causal, window, q_offset = case
+    if kv_tile is None:
+        return np.full(S, T)
+    n_kt = -(-T // kv_tile)
+    kv0 = np.arange(n_kt)[None, :] * kv_tile
+    glo = (np.arange(S) // 64 * 64 + q_offset)[:, None]
+    seen = np.ones((S, n_kt), bool)
+    if causal:
+        seen &= kv0 <= glo + 63
+    if window is not None:
+        seen &= kv0 + kv_tile - 1 > glo - window
+    return seen.sum(axis=1) * kv_tile
+
+
+@pytest.mark.parametrize("kv_tile", [None, 64, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_stats_plain_is_the_logsumexp_of_jax_scores(name, kv_tile):
+    """fa_stats_plain's m (base 2) and 1/l give m·ln 2 + log l equal to
+    jax.nn.logsumexp of the reference's masked, scaled scores on every row
+    with a visible key, within 1e-5 (absolute, on values of order 1-10: the
+    sums run in another order); a row whose keys are all masked reads m =
+    NEG2 exactly and 1/l = 1 / its visited slots (0 with none)."""
+    case = CASES[name]
+    B, H, Hkv, S, T, D, causal, window, q_offset = case
+    q, k, _, _, kw = _inputs(case, seed=6)
+    qt, kt = (torch.from_numpy(a).transpose(1, 2) for a in (q, k))
+    stats = fa.fa_stats_plain(qt, kt, kv_tile=kv_tile, **kw).numpy()
+    m, inv_l = (x.reshape(B, H, S) for x in stats)
+
+    kj = jnp.repeat(jnp.asarray(k), H // Hkv, axis=2)
+    scores = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kj) * D ** -0.5
+    qpos = np.arange(S)[:, None] + q_offset
+    kpos = np.arange(T)[None, :]
+    ok = np.ones((S, T), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    want = np.asarray(jax.nn.logsumexp(jnp.where(ok, scores, -jnp.inf), axis=-1))
+    live = ok.any(axis=1)
+    got = m * np.log(2.0) - np.log(np.where(inv_l > 0, inv_l, 1.0))
+    np.testing.assert_allclose(got[..., live], want[..., live], atol=TOL, rtol=0)
+    if not live.all():
+        assert (m[..., ~live] == np.float32(fa.NEG2)).all()
+        slots = _visited_slots(case, kv_tile)[~live]
+        recip = np.where(slots > 0, 1.0 / np.maximum(slots, 1), 0.0)
+        np.testing.assert_allclose(inv_l[..., ~live],
+                                   np.broadcast_to(recip, inv_l[..., ~live].shape),
+                                   rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kv_tile", [None, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_plain_with_given_stats_is_exact(name, kv_tile):
+    """fa_backward_plain(stats=fa_stats_plain(...)) equals
+    fa_backward_plain() bit for bit: step 1 is that function."""
+    q, k, v, do, kw = _inputs(CASES[name], seed=7)
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+    o = fa.fa_plain(qt, kt, vt, **kw)
+    stats = fa.fa_stats_plain(qt, kt, kv_tile=kv_tile, **kw)
+    got = fa.fa_backward_plain(qt, kt, vt, o, dot, kv_tile=kv_tile,
+                               stats=stats, **kw)
+    want = fa.fa_backward_plain(qt, kt, vt, o, dot, kv_tile=kv_tile, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_function_saves_stats_and_recomputes_them_under_checkpoint(monkeypatch):
+    """In bfloat16 FlashAttentionFn has the forward write the statistics
+    and saves them with save_for_backward; under a non-reentrant
+    torch.utils.checkpoint they are dropped with the layer and written
+    again by the recompute, and the gradients equal fa_backward_plain's
+    exactly.  The launches are the plain versions on the CPU, as in
+    test_function_plumbing_on_views."""
+    launches = []
+
+    def launch(q, k, v, c, w, o, stats=None):
+        launches.append(stats)
+        if stats is not None:
+            stats.copy_(fa.fa_stats_plain(q, k, causal=c, window=w, q_offset=o))
+        return fa.fa_plain(q, k, v, causal=c, window=w, q_offset=o)
+
+    def backward(q, k, v, o, do, *, causal, window, q_offset, stats):
+        assert stats is not None and stats.shape == (2, B * H * S)
+        return fa.fa_backward_plain(q, k, v, o, do, causal=causal,
+                                    window=window, q_offset=q_offset,
+                                    stats=stats)
+
+    monkeypatch.setattr(fa, "_fa_launch", launch)
+    monkeypatch.setattr(fa, "fa_backward", backward)
+    case = CASES["window_gqa"]
+    B, H, _, S = case[:4]
+    q, k, v, do, kw = _inputs(case, seed=8)
+    args = (kw["causal"], kw["window"], kw["q_offset"])
+    qs, ks, vs = (torch.from_numpy(a).bfloat16().transpose(1, 2) for a in (q, k, v))
+    dot = torch.from_numpy(do).bfloat16().transpose(1, 2)
+
+    saved = []
+    leaves = [t.detach().clone().requires_grad_() for t in (qs, ks, vs)]
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        out = fa.FlashAttentionFn.apply(*leaves, *args)
+    assert len(launches) == 1 and launches[0] is not None
+    assert any(t is launches[0] for t in saved), "stats not saved"
+
+    ck = [t.detach().clone().requires_grad_() for t in (qs, ks, vs)]
+    out_ck = torch.utils.checkpoint.checkpoint(
+        fa.FlashAttentionFn.apply, *ck, *args, use_reentrant=False)
+    out_ck.backward(dot)
+    assert len(launches) == 3 and all(s is not None for s in launches)
+    assert launches[2] is not launches[1], "the recompute wrote no stats"
+    want = fa.fa_backward_plain(qs, ks, vs, out.detach(), dot, **kw)
+    for t, w in zip(ck, want):
+        assert t.grad.dtype == torch.bfloat16
+        assert torch.equal(t.grad, w)
+
+
+def test_bf16_backward_needs_the_forward_stats():
+    q, k, v, do, kw = _inputs(CASES["causal"], seed=9)
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2).bfloat16()
+                       for a in (q, k, v, do))
+    o, stats = fa.fa_forward_with_stats(qt, kt, vt, **kw)
+    assert torch.equal(o, fa.fa_plain(qt, kt, vt, **kw))
+    assert torch.equal(stats, fa.fa_stats_plain(qt, kt, **kw))
+    with pytest.raises(ValueError, match="fa_forward_with_stats"):
+        fa.fa_backward(qt, kt, vt, o, dot, **kw)
+
+
+def test_f32_backward_refuses_stats():
+    """The float32 backward kernels recompute the statistics, so a stats
+    tensor passed with float32 inputs is refused rather than ignored."""
+    q, k, v, do, kw = _inputs(CASES["causal"], seed=9)
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+    o = fa.fa_plain(qt, kt, vt, **kw)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        fa.fa_backward(qt, kt, vt, o, dot, stats=fa.fa_stats_plain(qt, kt, **kw),
+                       **kw)
+
+
+@pytest.mark.parametrize("kv_tile", [64, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_forward_follows_the_kernels_tile_visits(name, kv_tile):
+    """``fa_plain(kv_tile=)`` is the CUDA forward kernel's function, written
+    out in ``_tiled_forward``: within 1e-5 on every row (f32 against f64),
+    and equal to ``fa_plain()`` on every row with a visible key."""
+    case = CASES[name]
+    q, k, v, _, kw = _inputs(case, seed=4)
+    qt, kt, vt = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    got = fa.fa_plain(qt, kt, vt, kv_tile=kv_tile, **kw)
+    want = _tiled_forward(qt.double(), kt.double(), vt.double(),
+                          kv_tile=kv_tile, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    B, H, Hkv, S, T, D, causal, window, q_offset = case
+    qpos = np.arange(S)[:, None] + q_offset
+    kpos = np.arange(T)[None, :]
+    ok = np.ones((S, T), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    live = torch.from_numpy(ok.any(axis=1))
+    every = fa.fa_plain(qt, kt, vt, **kw)
+    assert torch.equal(got[:, :, live], every[:, :, live])
+    assert (_masked_rows(case) > 0) == (not torch.equal(got, every))

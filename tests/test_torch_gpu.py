@@ -484,16 +484,20 @@ def _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, seed):
 def test_fa_backward_kernel_equals_plain_on_card(dev, dtype, B, H, Hkv, S, T,
                                                  D, window, q_offset, causal):
     """dq, dk, dv of the kernel against fa_backward_plain on the kernel
-    forward's output: f32 within 2e-5 + 2e-5·|plain|, bf16 within
+    forward's output: f32 within 2e-5 + 2e-5·|plain|, bf16 (the wgmma
+    kernels, reading the statistics the forward saved) within
     2e-2 + 2e-2·|plain| (the forward's tolerances), in the inputs' dtypes
     and layouts."""
     from repro_torch.kernels import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _bwd_inputs(dev, dtype, B, H, Hkv, S, T, D, S * 13 + T + D)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    o = fa.flash_attention(q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        o, stats = fa.fa_forward_with_stats(q, k, v, **kw)
+    else:
+        o, stats = fa.flash_attention(q, k, v, **kw), None
     before = fa.bwd_launch_count()
-    got = fa.fa_backward(q, k, v, o, do, **kw)
+    got = fa.fa_backward(q, k, v, o, do, stats=stats, **kw)
     assert fa.bwd_launch_count() == before + 1
     want = fa.fa_backward_plain(q, k, v, o, do, kv_tile=fa.KV_TILE[dtype], **kw)
     torch.cuda.synchronize()
@@ -515,10 +519,82 @@ def test_flash_attention_autograd_runs_both_kernels_on_card(dev):
         out = fa.flash_attention(*leaves, causal=True, window=None)
         out.backward(do)
         assert (fa.launch_count() - f0, fa.bwd_launch_count() - b0) == (1, 1)
-        want = fa.fa_backward(q, k, v, out.detach(), do)
+        stats = None
+        if dtype == torch.bfloat16:
+            o2, stats = fa.fa_forward_with_stats(q, k, v, causal=True)
+            assert torch.equal(o2, out.detach())
+        want = fa.fa_backward(q, k, v, out.detach(), do, stats=stats)
         torch.cuda.synchronize()
         for t, w in zip(leaves, want):
             assert torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,window,q_offset,causal", FA_BWD_EDGES)
+def test_fa_forward_stats_equal_plain_on_card(dev, B, H, Hkv, S, T, D, window,
+                                              q_offset, causal):
+    """The bf16 forward kernel's saved statistics against fa_stats_plain
+    over its tiles (f32 products of the same bf16 inputs): m (base 2) and
+    1/l within 1e-5 + 1e-5·|plain| (the sums run in another order, exp2
+    approximate); a row whose every key is masked reads m = NEG2 exactly.
+    Its output against fa_plain over the same tiles within the forward's
+    2e-2 + 2e-2·|plain|, and equal bit for bit to the inference launch's."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, S, T, D,
+                             S * 17 + T + D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.launch_count()
+    o, stats = fa.fa_forward_with_stats(q, k, v, **kw)
+    assert fa.launch_count() == before + 1
+    want = fa.fa_stats_plain(q, k, kv_tile=fa.KV_TILE[torch.bfloat16], **kw)
+    o_plain = fa.fa_plain(q, k, v, kv_tile=fa.KV_TILE[torch.bfloat16], **kw)
+    o_inference = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_plain.float(), atol=tol, rtol=tol)
+    assert torch.equal(o, o_inference)
+    assert stats.shape == want.shape == (2, B * H * S)
+    torch.testing.assert_close(stats, want, atol=1e-5, rtol=1e-5)
+    qpos = torch.arange(S, device=dev)[:, None] + q_offset
+    kpos = torch.arange(T, device=dev)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    dead = (~ok.any(dim=1)).expand(B, H, S).reshape(-1)
+    assert bool((stats[0][dead] == want[0][dead]).all())
+    assert bool((want[0][dead] == torch.tensor(fa.NEG2, dtype=torch.float32)).all())
+
+
+def test_fa_forward_without_grad_writes_no_stats_on_card(dev, monkeypatch):
+    """Without autograd the forward launches once with no statistics
+    buffer, as before the backward read them, and its output equals the
+    stats-writing launch's bit for bit; with grad on, bf16 writes them."""
+    from repro_torch.kernels import flash_attention as fa
+    calls = []
+    launch = fa._fa_launch
+
+    def spy(q, k, v, c, w, o, stats=None):
+        calls.append(stats)
+        return launch(q, k, v, c, w, o, stats=stats)
+
+    monkeypatch.setattr(fa, "_fa_launch", spy)
+    q, k, v, _ = _bwd_inputs(dev, torch.bfloat16, 2, 8, 2, 130, 130, 96, 11)
+    before = fa.launch_count()
+    with torch.no_grad():
+        plain_out = fa.flash_attention(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=True)      # no input needs grad
+    assert fa.launch_count() == before + 2 and calls == [None, None]
+    with_stats, stats = fa.fa_forward_with_stats(q, k, v, causal=True)
+    assert calls[-1] is stats
+    torch.cuda.synchronize()
+    assert torch.equal(plain_out, with_stats) and torch.equal(out, with_stats)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True)
+    assert calls[-1] is not None and calls[-1].shape == stats.shape
+    with pytest.raises(ValueError, match="statistics"):
+        fa.fa_forward_with_stats(q.float(), k.float(), v.float())
 
 
 def test_kernels_without_a_backward_refuse_autograd_on_card(dev):

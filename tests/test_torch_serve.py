@@ -6,6 +6,9 @@ resume after a truncated run, recycled slots), and the port's
 the same greedy tokens per request (dense, hybrid and moe), and the same
 refusal of audio (and, at construction, of vlm).
 """
+import gc
+import weakref
+
 import jax
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from repro_torch import convert
 from repro_torch.configs import ARCHS
 from repro_torch.core import RunReport
 from repro_torch.launch.serve import Request, ServeEngine
+from repro_torch.models import init_params_spec
 
 CPU = "cpu"
 
@@ -47,6 +51,32 @@ def test_serve_engine_order_and_isolation():
     solo = eng2.run()[0]
     batched = next(r for r in results if r.rid == 0)
     assert solo.generated == batched.generated
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-2.7b"])
+def test_finished_engine_is_freed_without_the_garbage_collector(arch):
+    """An engine that has served is freed, its parameters with it, when its
+    last reference goes: nothing it built (the serving graph, whose
+    vertices and graph refer to each other) holds it in a reference cycle.
+    The collector stays off from construction to the probe."""
+    cfg = ARCHS[arch].smoke()
+    # torch's first operation on a meta tensor in a process imports modules
+    # whose frames stay in a cycle, with the caller's frame: do it first
+    init_params_spec(cfg)
+    was_on = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        eng = ServeEngine(cfg, max_batch=2, max_len=64, seed=0, device=CPU)
+        for i, p in enumerate(_prompts(cfg, 3)):
+            eng.submit(Request(rid=i, prompt=p, max_new=3))
+        assert len(eng.run()) == 3
+        probe, params = weakref.ref(eng), weakref.ref(eng.params["embed"])
+        del eng
+        assert probe() is None and params() is None
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def test_serve_engine_resumes_after_truncated_run():
