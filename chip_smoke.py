@@ -26,11 +26,12 @@ kernel launch counts set to 0 just before it and read just after:
 * training: Phi-3-mini-3.8B at full width (all 32 layers, bf16 parameters,
   f32 moments) through ``launch.train.train``, every attention block
   through the flash-attention kernel forward and its hand-written backward
-  kernel.
+  kernel; then Zamba2-2.7B at full width (all 54 layers), every Mamba2
+  block through the SSD kernels and their hand-written backward kernels.
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the four CUDA sources in ``src/repro_torch/kernels/csrc``, one
+  2. build the five CUDA sources in ``src/repro_torch/kernels/csrc``, one
      nvcc each, all started together;
   3. SW kernel == plain PyTorch version on the card, exactly, on many shapes;
   4. the SW main path: a 4096-subject database through ``TaskFarm`` and
@@ -71,7 +72,14 @@ Phases, each on lines of its own; any failed check exits non-zero:
       the peak memory; at 2 layers the f32 gradients through the kernels
       against naive attention (bf16 must miss the limit) and a restart
       from a checkpoint after an injected failure, equal to an
-      uninterrupted run;
+      uninterrupted run; then the SSD backward (four CUDA kernels per
+      call, counted as one launch) against its plain version on phase 6's
+      SSD cases, with kernel, per-kernel, plain and bound times at
+      Zamba2's shape; Zamba2-2.7B trained at full width through
+      ``launch.train.train`` as Phi-3 is (SSD launches 90 forward with
+      the remat recompute and 45 backward a step, FA 18 and 9), and at 6
+      layers its f32 gradients through the kernels against ssd_plain and
+      naive attention (bf16 must miss the limit);
   11. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -141,6 +149,27 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # the f32 plain version's cumulative log-decays, which reach -1e3, drift by
 # about the tolerance themselves (tests/test_torch_ssm.py, the f64 witness).
 SSD_WITNESS_CHUNK = 256
+# The SSD kernels' cases (phase 6 forward, phase 10 backward):
+SSD_CASES = [  # b, T, H, P, N, chunk, with h0
+    (2, 64, 80, 64, 64, 8, False),
+    (1, 256, 80, 64, 64, 64, True),
+    (2, 512, 80, 64, 64, 256, True),
+    (1, 512, 24, 64, 128, 256, False),
+    (2, 96, 24, 64, 128, 32, True),
+    (1, 48, 24, 64, 128, 16, False),
+    (1, 128, 3, 16, 16, 128, True),
+    # the five-pass kernel's edges: one chunk with P = 16, N = 128, H = 3;
+    # ragged 64-row tiles (96), an odd chunk under one tile (15, scalar
+    # staging), chunks of 1024, 64 chunks in the inter-chunk pass, and
+    # P = 5, N = 7 (scalar staging of x, B, C and the state)
+    (1, 256, 3, 16, 128, 256, False),
+    (2, 192, 24, 64, 64, 96, True),
+    (1, 45, 3, 8, 16, 15, True),
+    (1, 1024, 8, 64, 64, 1024, True),
+    (2, 2048, 24, 64, 128, 1024, False),
+    (1, 4096, 8, 64, 64, 64, True),
+    (1, 140, 3, 5, 7, 70, True),
+]
 # The bf16 FA kernel's edges (B, H, Hkv, S, T, D, window, q_offset, causal):
 # every head dim; S and T of 1, 63, 65, 257 and below its 128-row kv tile;
 # S < T with q_offset = T - S; S > T; GQA and MQA; windows 1, 64 and 128.
@@ -614,12 +643,14 @@ def kernel_name(mangled):
     length-prefixed identifier ending in ``kernel``, with its integer and
     bool template arguments."""
     for m in re.finditer(r"\d+", mangled):
-        name = mangled[m.end():m.end() + int(m.group())]
-        if name.endswith("kernel") and name.isidentifier():
-            rest = mangled[m.end() + len(name):].split("EEv")[0]
-            args = [v if t == "i" else ("false", "true")[int(v)]
-                    for t, v in re.findall(r"L([ib])(\d+)E", rest)]
-            return name + (f"<{', '.join(args)}>" if args else "")
+        run = m.group()
+        for k in range(len(run)):    # a length may follow a hash's digits
+            name = mangled[m.end():m.end() + int(run[k:])]
+            if name.endswith("kernel") and name.isidentifier():
+                rest = mangled[m.end() + len(name):].split("EEv")[0]
+                args = [v if t == "i" else ("false", "true")[int(v)]
+                        for t, v in re.findall(r"L([ib])(\d+)E", rest)]
+                return name + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
 
@@ -702,30 +733,10 @@ def phase_model_kernels(dev, fa, ssd):
           f"{worst['fa']['float32']:.3e} (tol 2e-5 + 2e-5*|plain|), bf16 "
           f"{worst['fa']['bfloat16']:.3e} (tol 2e-2 + 2e-2*|plain|)", flush=True)
 
-    ssd_cases = [  # b, T, H, P, N, chunk, with h0
-        (2, 64, 80, 64, 64, 8, False),
-        (1, 256, 80, 64, 64, 64, True),
-        (2, 512, 80, 64, 64, 256, True),
-        (1, 512, 24, 64, 128, 256, False),
-        (2, 96, 24, 64, 128, 32, True),
-        (1, 48, 24, 64, 128, 16, False),
-        (1, 128, 3, 16, 16, 128, True),
-        # the five-pass kernel's edges: one chunk with P = 16, N = 128, H = 3;
-        # ragged 64-row tiles (96), an odd chunk under one tile (15, scalar
-        # staging), chunks of 1024, 64 chunks in the inter-chunk pass, and
-        # P = 5, N = 7 (scalar staging of x, B, C and the state)
-        (1, 256, 3, 16, 128, 256, False),
-        (2, 192, 24, 64, 64, 96, True),
-        (1, 45, 3, 8, 16, 15, True),
-        (1, 1024, 8, 64, 64, 1024, True),
-        (2, 2048, 24, 64, 128, 1024, False),
-        (1, 4096, 8, 64, 64, 64, True),
-        (1, 140, 3, 5, 7, 70, True),
-    ]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for cd in (torch.float32, torch.bfloat16):
-            for b, T, H, P, N, chunk, with_h0 in ssd_cases:
+            for b, T, H, P, N, chunk, with_h0 in SSD_CASES:
                 x = randn(b, T, H, P, dtype=dtype)
                 dt = torch.nn.functional.softplus(randn(b, T, H)) * 0.1
                 A = -torch.exp(randn(H))
@@ -1036,6 +1047,34 @@ def _plain_versions():
         attention.flash_attention, ssm.ssd_scan = saved
 
 
+def ssd_fwd_flops(b, T, H, P, N, l):
+    """The SSD forward's operations: per (batch, chunk) C·Bᵀ over the causal
+    pairs, and per head the gating (a multiply a pair), the diagonal
+    product, the chunk's state and y_off (l·N·P multiply-adds each) and the
+    state's update; 2 flops a multiply-add."""
+    nc, tri = T // l, l * (l + 1) // 2
+    return b * nc * (2 * N * tri + H * (tri + 2 * P * tri + 4 * l * N * P + 2 * P * N))
+
+
+def ssd_bwd_flops(b, T, H, P, N, l):
+    """The least operations of the SSD backward: per (batch, chunk) and head
+    two products over the causal pairs (dy·uᵀ, G·dy) and four l·N·P ones (the
+    state gradient, h_inᵀ·dy for dC and the y_off term, gᵀ·u for dB, g·B for
+    du), and per chunk dS·B and dSᵀ·C over the causal pairs; 2 flops a
+    multiply-add."""
+    nc, tri = T // l, l * (l + 1) // 2
+    return 2 * b * nc * (H * (2 * P * tri + 4 * l * N * P) + 2 * N * tri)
+
+
+def ssd_bwd_kernel_flops(b, T, H, P, N, l):
+    """What the backward kernels do instead: the causal products over whole
+    64 x 64 tiles and a fifth l·N·P product (C·h_in, which the forward
+    computed but did not keep)."""
+    nc, nt = T // l, -(-l // 64)
+    pairs = nt * (nt + 1) // 2 * 64 * 64
+    return 2 * b * nc * (H * (2 * P * pairs + 5 * l * N * P) + 2 * N * pairs)
+
+
 def phase_model_timing(dev, fa, ssd):
     """FA and SSD at the main path's shapes: kernel, plain, bound, library."""
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1122,8 +1161,7 @@ def phase_model_timing(dev, fa, ssd):
     check(oky and okh, f"SSD kernel != plain at the main path's shape: {ey} {eh}")
     kern = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=l), iters=10, warmup=2)
     plain = cuda_ms(lambda: ssd.ssd_plain(x, dt, A, Bm, Cm, l), iters=3, warmup=1)
-    nc, tri = T // l, l * (l + 1) // 2
-    flops = b * nc * (2 * N * tri + Hs * (tri + 2 * P * tri + 4 * l * N * P + 2 * P * N))
+    flops = ssd_fwd_flops(b, T, Hs, P, N, l)
     t_ops = flops / PEAK_F32
     nbytes = (x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
               + y.numel() * 4 + h.numel() * 4)
@@ -1518,6 +1556,26 @@ FA_BWD_EDGES = [
 # unchecked; the L2 norm would see such a half wrong at about 0.3.
 BF16_GRAD_REL = 1e-2
 TRAIN_SPANS = ("train.adamw", "train.ce")    # profiler ranges of the step split
+# The SSD backward (four CUDA kernels per call, counted as one launch)
+# against ssd_backward_plain on SSD_CASES, both x dtypes and both compute
+# dtypes: each gradient within SSD_TOL of its own max |plain| (float64 plain
+# at chunks over SSD_WITNESS_CHUNK with f32 products), plus, where the
+# gradient is stored in bf16 (dx, dB, dC of bf16 inputs), one bf16 spacing
+# of the element, 2^-7 of |plain|: two f32 values a rounding apart can round
+# to neighbouring bf16 values.  The JAX package has no backward kernel: XLA
+# differentiates the model's ssd_chunked.
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+SSD_BWD_REPLACES = "src/repro/models/ssm.py:66"
+SSD_BWD_KERNELS = 4
+BF16_SPACING = 2.0 ** -7
+SSD_BWD_KERNEL = re.compile(r"ssd_bwd_\w*kernel")
+SSD_BWD_SHAPE = (PREFILL_B, PREFILL_S, 80, 64, 64, 256)   # Zamba2's: b, T, H, P, N, chunk
+# Zamba2-2.7B trained at full width (all 54 layers) as Phi-3 is; its f32
+# gradient check at one group's depth (5 Mamba2 blocks and the shared
+# attention block), full width, 1 x 2048 tokens, against ssd_plain and naive
+# attention under autograd within TRAIN_GRAD_TOL.
+HYBRID_ARCH = MAIN_ARCH
+HYBRID_CUT = dict(layers=6, batch=1, seq=2048)
 
 
 def free_device_memory():
@@ -1725,24 +1783,39 @@ def phase_fa_backward(dev, fa):
     return row
 
 
-def train_flops(cfg, B, S):
-    """6·N·tokens (N = every parameter, the embeddings included) plus the
-    attention's forward (2) and backward (5) products of 2·D flops per
-    unmasked pair; the remat recompute not counted."""
+def train_flops(cfg, B, S, params):
+    """(FLOPs at the bf16 rate, FLOPs at the f32 rate) of one train step:
+    6 x the parameters as applied (a block shared by several layers counted
+    once a use; the embeddings included) x tokens plus the attention's
+    forward (2) and backward (5) products of 2·D flops per unmasked pair, on
+    the tensor cores; the SSD scan's forward and backward products on the
+    f32 pipes, where its kernels run.  The remat recompute not counted."""
     from repro_torch.models import param_count
+    from repro_torch.tree import tree_leaves
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "attn_shared") for k in kinds)
+    n_ssm = sum(k == "ssm" for k in kinds)
+    applied = param_count(cfg)
+    if "shared_attn" in params:
+        uses = sum(k == "attn_shared" for k in kinds)
+        applied += (uses - 1) * sum(t.numel() for t in tree_leaves(params["shared_attn"]))
     pairs = fa_pairs(S, S, True, cfg.sliding_window)
-    attn = 7 * 2 * cfg.hdim * pairs * B * cfg.n_heads * cfg.n_layers
-    return 6 * param_count(cfg) * B * S + attn
+    attn = 7 * 2 * cfg.hdim * pairs * B * cfg.n_heads * n_attn
+    shape = (B, S, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+             min(cfg.ssm_chunk, S)) if n_ssm else None
+    ssd_f32 = n_ssm * (ssd_fwd_flops(*shape) + ssd_bwd_flops(*shape)) if n_ssm else 0
+    return 6 * applied * B * S + attn, ssd_f32, applied
 
 
 def _timed_train_steps(record):
     """A ``wrap_step`` for ``launch.train.train``: each step timed by CUDA
     events and the host clock (the host's enqueue, then the wall to a
-    synchronise), its FA launch counts, and step TRAIN_PROFILED under
+    synchronise), its FA and SSD launch counts, and step TRAIN_PROFILED under
     torch.profiler, where the program's own ranges (TRAIN_SPANS) mark the
     optimizer update and the cross entropy (forward and its recompute)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
 
     def wrap(step_fn):
         def timed(params, opt, batch):
@@ -1750,6 +1823,7 @@ def _timed_train_steps(record):
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
                 if i == TRAIN_PROFILED else contextlib.nullcontext()
             f0, b0 = fa.launch_count(), fa.bwd_launch_count()
+            s0, sb0 = ssd.launch_count(), ssd.bwd_launch_count()
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -1764,6 +1838,8 @@ def _timed_train_steps(record):
             record.append(dict(ms=start.elapsed_time(stop), enqueue_ms=enq * 1e3,
                                wall_ms=wall * 1e3, fa=fa.launch_count() - f0,
                                fa_bwd=fa.bwd_launch_count() - b0,
+                               ssd=ssd.launch_count() - s0,
+                               ssd_bwd=ssd.bwd_launch_count() - sb0,
                                metrics={k: float(v) for k, v in out[2].items()},
                                prof=prof if i == TRAIN_PROFILED else None))
             return out
@@ -1773,9 +1849,10 @@ def _timed_train_steps(record):
 
 def train_split(prof):
     """One profiled train step's device time (ms) by part: FA forward (and
-    its remat recompute), FA backward, the optimizer update, the cross
-    entropy's forward and recompute (its backward GEMMs count as GEMMs,
-    its elementwise backward as the rest), the other GEMMs, the rest."""
+    its remat recompute), FA backward, the SSD forward (and its recompute)
+    and backward, the optimizer update, the cross entropy's forward and
+    recompute (its backward GEMMs count as GEMMs, its elementwise backward
+    as the rest), the other GEMMs, the rest."""
     kernels = [(ev.name, ev.device_time_total) for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and ev.name not in TRAIN_SPANS]
@@ -1783,6 +1860,8 @@ def train_split(prof):
     fa_fwd = sum(us for n, us in kernels if "fa_kernel" in n
                  or "fa_wgmma_kernel" in n) / 1e3
     fa_bwd = sum(us for n, us in kernels if "fa_bwd_" in n) / 1e3
+    ssd_bwd = sum(us for n, us in kernels if SSD_BWD_KERNEL.search(n)) / 1e3
+    ssd_fwd = sum(us for n, us in kernels if SSD_KERNEL.search(n)) / 1e3 - ssd_bwd
     gemm = sum(us for n, us in kernels
                if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
     spans = {name: [] for name in TRAIN_SPANS}
@@ -1798,9 +1877,11 @@ def train_split(prof):
                   if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
     other_gemm = gemm - ce_gemm
     return {"total": total, "GEMMs": other_gemm, "FA forward": fa_fwd,
-            "FA backward": fa_bwd, "optimizer update": opt_ms,
+            "FA backward": fa_bwd, "SSD forward": ssd_fwd,
+            "SSD backward": ssd_bwd, "optimizer update": opt_ms,
             "cross-entropy": ce_ms,
-            "rest": total - other_gemm - fa_fwd - fa_bwd - opt_ms - ce_ms}
+            "rest": total - other_gemm - fa_fwd - fa_bwd - ssd_fwd - ssd_bwd
+            - opt_ms - ce_ms}
 
 
 def _grad_tree(params, batch, cfg):
@@ -1809,6 +1890,15 @@ def _grad_tree(params, batch, cfg):
     from repro_torch.tree import tree_leaves
     loss, _, grads = loss_and_grads(params, batch, cfg)
     return float(loss), tree_leaves(grads)
+
+
+def _worst_leaf(grads, want):
+    """The worst leaf's max |g - w| / max |w|."""
+    out = 0.0
+    for g, w in zip(grads, want):
+        out = max(out, float((g.float() - w).abs().max())
+                  / max(float(w.abs().max()), 1e-30))
+    return out
 
 
 def train_consistency(dev, base):
@@ -1833,19 +1923,12 @@ def train_consistency(dev, base):
     check(fa.launch_count() - f0 == 2 * cfg.n_layers,
           "the naive step launched the FA kernel")
 
-    def worst(grads):
-        out = 0.0
-        for g, w in zip(grads, g_n):
-            out = max(out, float((g.float() - w).abs().max())
-                      / max(float(w.abs().max()), 1e-30))
-        return out
-
-    err32 = worst(g_k)
+    err32 = _worst_leaf(g_k, g_n)
     del params, g_k
     torch.cuda.empty_cache()
     p16 = init_params(cfg.replace(dtype="bfloat16"), 0, device=dev)
     loss_16, g_16 = _grad_tree(p16, batch, cfg.replace(dtype="bfloat16"))
-    err16 = worst(g_16)
+    err16 = _worst_leaf(g_16, g_n)
     del p16, g_16, g_n
     torch.cuda.empty_cache()
     print(f"train consistency {cfg.name} ({cfg.n_layers} layers, full width) "
@@ -1862,6 +1945,63 @@ def train_consistency(dev, base):
     check(err16 > TRAIN_GRAD_TOL,
           f"bf16 gradients {err16} within {TRAIN_GRAD_TOL}: the tolerance "
           f"would not catch bf16")
+    return err32, err16
+
+
+def hybrid_train_consistency(dev, base):
+    """f32 gradients of one Zamba2 step at one group's depth (full width)
+    through the SSD and FA kernels, forward and backward, against the same
+    step with ssd_plain and naive attention under autograd; the bf16 step
+    must miss the limit."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import init_params
+    cfg = base.replace(n_layers=HYBRID_CUT["layers"], dtype="float32")
+    kinds = cfg.layer_kinds()
+    n_attn, n_ssm = kinds.count("attn_shared"), kinds.count("ssm")
+    np_batch = SyntheticLM(cfg, HYBRID_CUT["batch"], HYBRID_CUT["seq"], seed=1)(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    params = init_params(cfg, 0, device=dev)
+
+    def launched():
+        return (fa.launch_count(), fa.bwd_launch_count(), ssd.launch_count(),
+                ssd.bwd_launch_count())
+
+    c0 = launched()
+    loss_k, g_k = _grad_tree(params, batch, cfg)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(launched(), c0))
+    want = (2 * n_attn, n_attn, 2 * n_ssm, n_ssm)
+    check(counts == want, f"f32 zamba2 step launched (fa, fa backward, ssd, "
+          f"ssd backward) {counts}, expected {want}")
+    c1 = launched()
+    with _plain_versions():
+        loss_n, g_n = _grad_tree(params, batch, cfg.replace(attn_impl="naive"))
+    check(launched() == c1, "the plain step launched a kernel")
+    err32 = _worst_leaf(g_k, g_n)
+    del params, g_k
+    torch.cuda.empty_cache()
+    p16 = init_params(cfg.replace(dtype="bfloat16"), 0, device=dev)
+    loss_16, g_16 = _grad_tree(p16, batch, cfg.replace(dtype="bfloat16"))
+    err16 = _worst_leaf(g_16, g_n)
+    del p16, g_16, g_n
+    torch.cuda.empty_cache()
+    print(f"train consistency {cfg.name} ({cfg.n_layers} layers: {n_ssm} Mamba2 "
+          f"blocks and the shared attention block, full width) f32, "
+          f"{HYBRID_CUT['batch']} x {HYBRID_CUT['seq']} tokens: gradients "
+          f"through the SSD kernels (forward {2 * n_ssm} launches with the remat "
+          f"recompute, backward {n_ssm}) and the FA kernels against ssd_plain "
+          f"and naive attention under autograd, worst leaf max |diff| / max "
+          f"|g| {err32:.3e} (tol {TRAIN_GRAD_TOL}); losses {loss_k:.6f} / "
+          f"{loss_n:.6f}; the bf16 step is {err16:.3e} from the f32 plain "
+          f"gradients (loss {loss_16:.6f}), so bf16 fails the tolerance",
+          flush=True)
+    check(err32 <= TRAIN_GRAD_TOL,
+          f"f32 zamba2 kernel gradients vs plain: {err32} > {TRAIN_GRAD_TOL}")
+    check(err16 > TRAIN_GRAD_TOL,
+          f"bf16 zamba2 gradients {err16} within {TRAIN_GRAD_TOL}: the "
+          f"tolerance would not catch bf16")
     return err32, err16
 
 
@@ -1911,20 +2051,171 @@ def train_restart(dev, base):
     return err
 
 
-def phase_training(dev, fa):
-    """Phase 10: the FA backward kernel, then Phi-3-mini-3.8B training at
-    full width through ``train``, the f32 gradient check and the restart."""
+def _ssd_grad_err(got, want):
+    """(each gradient's max |got - want| / max |want|, less one bf16 spacing
+    of the element where the gradient is stored in bf16; the largest
+    max |got - want| of them; whether every value is finite)."""
+    errs, abs_err, finite = {}, 0.0, True
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        if w is None:
+            continue
+        finite &= bool(torch.isfinite(g).all())
+        diff = (g.double() - w.double()).abs()
+        abs_err = max(abs_err, float(diff.max()))
+        if g.dtype == torch.bfloat16:
+            diff = (diff - BF16_SPACING * w.double().abs()).clamp(min=0)
+        errs[name] = float(diff.max()) / max(float(w.abs().max()), 1e-30)
+    return errs, abs_err, finite
+
+
+def _ssd_inputs(dev, b, T, H, P, N, dtype, seed, with_h0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, T, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, T, H), generator=g,
+                                                  device=dev)) * 0.1
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    Bm, Cm = (torch.randn((b, T, N), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    h0 = torch.randn((b, H, P, N), generator=g, device=dev) if with_h0 else None
+    dy = torch.randn((b, T, H, P), generator=g, device=dev)
+    dh = torch.randn((b, H, P, N), generator=g, device=dev) if with_h0 else None
+    return x, dt, A, Bm, Cm, h0, dy, dh
+
+
+def phase_ssd_backward(dev, ssd):
+    """The SSD backward kernels against ssd_backward_plain on SSD_CASES
+    (both x dtypes, both compute dtypes; a cotangent on y and, with h0, on
+    the final state), then kernel, per-kernel, plain and bound times at
+    Zamba2's shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"compute_float32": 0.0, "compute_bfloat16": 0.0}
+    worst_abs = dict(worst)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for cd in (torch.float32, torch.bfloat16):
+            for i, (b, T, H, P, N, l, with_h0) in enumerate(SSD_CASES):
+                x, dt, A, Bm, Cm, h0, dy, dh = _ssd_inputs(
+                    dev, b, T, H, P, N, dtype, 90 + i, with_h0)
+                _, _, scratch = ssd.ssd_forward_with_scratch(
+                    x, dt, A, Bm, Cm, chunk=l, h0=h0, compute_dtype=cd)
+                got = ssd.ssd_backward(x, dt, A, Bm, Cm, l, dy, scratch,
+                                       dh_final=dh, h0=h0, compute_dtype=cd)
+                witness = cd == torch.float32 and l > SSD_WITNESS_CHUNK
+                want = ssd.ssd_backward_plain(
+                    x, dt, A, Bm, Cm, l, dy, dh_final=dh, h0=h0,
+                    compute_dtype=torch.float64 if witness else cd)
+                torch.cuda.synchronize()
+                errs, abs_err, finite = _ssd_grad_err(got, want)
+                err = max(errs.values())
+                check(finite and err <= SSD_TOL[cd] and
+                      [t.dtype for t in got[:5]] == [dtype, torch.float32,
+                                                     torch.float32, dtype, dtype],
+                      f"SSD backward != plain{' (f64)' if witness else ''} at "
+                      f"{(b, T, H, P, N, l, with_h0)} x {dtype} compute {cd}: "
+                      f"{errs} (tol {SSD_TOL[cd]} of each max |plain|)")
+                key = "compute_" + str(cd).removeprefix("torch.")
+                worst[key] = max(worst[key], err)
+                worst_abs[key] = max(worst_abs[key], abs_err)
+                n += 1
+                del x, dt, A, Bm, Cm, h0, dy, dh, scratch, got, want
+    print(f"ssd backward kernel == plain on {n} cases (f64 plain for f32 "
+          f"products at chunks over {SSD_WITNESS_CHUNK}; dh with h0): worst "
+          f"max |diff| / max |plain| over dx, ddt, dA, dB, dC, dh0: f32 "
+          f"products {worst['compute_float32']:.3e} (tol 1e-4), bf16 products "
+          f"{worst['compute_bfloat16']:.3e} (tol 5e-2), less one bf16 spacing "
+          f"(2^-7 |plain|) where the gradient is stored in bf16; largest max "
+          f"|diff| {worst_abs['compute_float32']:.3e} (f32 products), "
+          f"{worst_abs['compute_bfloat16']:.3e} (bf16)", flush=True)
+
+    b, T, H, P, N, l = SSD_BWD_SHAPE
+    x, dt, A, Bm, Cm, _, dy, _ = _ssd_inputs(dev, b, T, H, P, N, torch.bfloat16,
+                                             7, False)
+    fwd = cuda_ms(lambda: ssd.ssd_forward_with_scratch(x, dt, A, Bm, Cm, chunk=l),
+                  iters=10, warmup=2)
+    _, _, scratch = ssd.ssd_forward_with_scratch(x, dt, A, Bm, Cm, chunk=l)
+    got = ssd.ssd_backward(x, dt, A, Bm, Cm, l, dy, scratch)
+    want = ssd.ssd_backward_plain(x, dt, A, Bm, Cm, l, dy)
+    torch.cuda.synchronize()
+    errs, main_abs, finite = _ssd_grad_err(got, want)
+    check(finite and max(errs.values()) <= SSD_TOL[torch.float32],
+          f"SSD backward != plain at Zamba2's shape: {errs}")
+    del got, want
+
+    def call():
+        return ssd.ssd_backward(x, dt, A, Bm, Cm, l, dy, scratch)
+    kern = cuda_ms(call, iters=10, warmup=2)
+    plain = cuda_ms(lambda: ssd.ssd_backward_plain(x, dt, A, Bm, Cm, l, dy),
+                    iters=2, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    reps = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        m = SSD_BWD_KERNEL.search(ev.key)
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if m and us:
+            split[m.group()] = split.get(m.group(), 0.0) + us / 1e3 / reps
+    flops = ssd_bwd_flops(b, T, H, P, N, l)
+    done = ssd_bwd_kernel_flops(b, T, H, P, N, l)
+    t_ops = flops / PEAK_F32
+    nc = T // l
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 * 2 + A.numel() * 4 * 2
+              + 4 * Bm.numel() * 2 + dy.numel() * 4     # x, dx; dt, ddt; A, dA; B, C, dB, dC; dy
+              + b * H * T * 8 + b * nc * l * l * 4 + b * nc * H * N * P * 4)  # cs, CBᵀ, states
+    t_bytes = nbytes / PEAK_BYTES
+    row = dict(ms=kern, plain_ms=plain, library_ms=None,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               err=max(*worst_abs.values(), main_abs), worst=worst_abs,
+               rel_err=max(*worst.values(), *errs.values()), worst_rel=worst,
+               main_shape=errs, split=split, forward_with_scratch_ms=fwd,
+               tflops=flops / (kern * 1e-3) / 1e12,
+               kernel_tflops=done / (kern * 1e-3) / 1e12,
+               shape=f"b={b} T={T} H={H} P={P} N={N} chunk={l} x bf16, f32 products")
+    print(f"timing ssd backward {row['shape']}: kernel {kern:.4f} ms (one "
+          f"launch of {SSD_BWD_KERNELS} kernels), plain {plain:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP "
+          f"at 67 TFLOP/s f32; {nbytes / 1e6:.1f} MB {t_bytes * 1e3:.4f} ms), "
+          f"{row['bound_ms'] / kern:.4f} of the bound, {row['tflops']:.2f} "
+          f"TFLOP/s of the least work, {row['kernel_tflops']:.2f} TFLOP/s of "
+          f"the {done / 1e9:.2f} GFLOP the kernels do; library: none (no "
+          f"PyTorch call computes it); forward with its scratch {fwd:.4f} ms; "
+          f"max |diff| / max |plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    print(f"ssd backward kernels at Zamba2's shape (torch.profiler over {reps} "
+          f"calls, ms per call): " + (
+              ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; sum {sum(split.values()):.4f}, "
+              f"{sum(split.values()) / kern:.4f} of the event-timed call (a "
+              f"long window can lose device records)" if split else
+              "no device time seen (not measured)"), flush=True)
+    del x, dt, A, Bm, Cm, dy, scratch
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_main_path(dev, arch, per_step):
+    """``arch`` at full width through ``launch.train.train``: TRAIN_STEPS
+    steps of TRAIN_B x TRAIN_S tokens from SyntheticLM seed 0, no checkpoint
+    directory; every step's launches must equal ``per_step`` (fa, fa_bwd,
+    ssd, ssd_bwd).  Prints each step, the mean of the timed steps, the
+    share of the FLOP bound, the peak memory and the device time by part."""
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.train import train
     from repro_torch.models import param_count
-    t_phase = time.perf_counter()
-    bwd_row = phase_fa_backward(dev, fa)
-
-    cfg = ARCHS[TRAIN_ARCH]
+    cfg = ARCHS[arch]
     n = param_count(cfg)
-    print(f"model {TRAIN_ARCH} (all {cfg.n_layers} layers, full width): "
+    ssm = (f", ssm heads {cfg.ssm_heads} x {cfg.ssm_headdim}, state "
+           f"{cfg.ssm_state}, chunk {cfg.ssm_chunk} ({cfg.ssm_compute_dtype} "
+           f"products)" if cfg.ssm_state else "")
+    print(f"model {arch} (all {cfg.n_layers} layers, full width): "
           f"d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.hdim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} parameters, "
+          f"{cfg.d_ff}{ssm}, vocab {cfg.vocab_size}, {cfg.dtype} parameters, "
           f"{cfg.optimizer_dtype} moments, remat {cfg.remat}, loss chunk "
           f"{cfg.loss_chunk}; {n} parameters: {n * 2 / 1e9:.3f} GB bf16, "
           f"moments {n * 8 / 1e9:.2f} GB f32, gradients {n * 2 / 1e9:.2f} GB "
@@ -1937,21 +2228,20 @@ def phase_training(dev, fa):
                           ckpt_dir=None, seed=0, log_every=1, device=dev,
                           wrap_step=_timed_train_steps(record))
     counts = read_counts()                           # --- end of window ---
-    bwd = fa.bwd_launch_count()
+    counts.update(fa_bwd=fa.bwd_launch_count(), ssd_bwd=ssd.bwd_launch_count())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    L = cfg.n_layers
-    check(counts == {"sw": 0, "fa": 2 * L * TRAIN_STEPS, "ssd": 0}
-          and bwd == L * TRAIN_STEPS,
-          f"train launched {counts} and fa backward {bwd}, expected fa "
-          f"{2 * L * TRAIN_STEPS} (forward and remat) and backward {L * TRAIN_STEPS}")
+    want = {"sw": 0, **{k: v * TRAIN_STEPS for k, v in per_step.items()}}
+    check(counts == want, f"train {arch} launched {counts}, expected {want}")
     check(len(record) == TRAIN_STEPS and all(
-        r["fa"] == 2 * L and r["fa_bwd"] == L for r in record),
-        f"per-step FA launches {[(r['fa'], r['fa_bwd']) for r in record]}")
+        all(r[k] == v for k, v in per_step.items()) for r in record),
+        f"per-step launches {[{k: r[k] for k in per_step} for r in record]}, "
+        f"expected {per_step}")
     check(all(np.isfinite(losses)) and all(
         np.isfinite(r["metrics"]["grad_norm"]) and r["metrics"]["grad_norm"] > 0
         for r in record), f"losses {losses} or grad norms not finite / zero")
-    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
-    bound_s = flops / PEAK_BF16
+    bf16_flops, f32_flops, applied = train_flops(cfg, TRAIN_B, TRAIN_S,
+                                                 state["params"])
+    bound_s = bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32
     ntok = TRAIN_B * TRAIN_S
     for i, r in enumerate(record):
         tag = ("warm-up" if i == 0 else "timed" if i in TRAIN_TIMED else
@@ -1963,21 +2253,25 @@ def phase_training(dev, fa):
               f"{r['enqueue_ms']:.3f} ms of {r['wall_ms']:.3f} ms wall; loss "
               f"{m['loss']:.6f} ce {m['ce']:.6f} grad_norm {m['grad_norm']:.6f} "
               f"lr {m['lr']:.3e}; FA launches {r['fa']} forward (with the "
-              f"remat recompute) and {r['fa_bwd']} backward", flush=True)
+              f"remat recompute) and {r['fa_bwd']} backward; SSD launches "
+              f"{r['ssd']} forward and {r['ssd_bwd']} backward", flush=True)
     timed = [record[i]["ms"] for i in TRAIN_TIMED]
     step_ms = float(np.mean(timed))
-    print(f"train {TRAIN_ARCH} B={TRAIN_B} S={TRAIN_S}: {step_ms:.3f} ms/step "
+    ssd_txt = (f", plus the SSD scan's forward and backward products, "
+               f"{f32_flops / 1e12:.2f} TFLOP at 67 TFLOP/s f32" if f32_flops else "")
+    print(f"train {arch} B={TRAIN_B} S={TRAIN_S}: {step_ms:.3f} ms/step "
           f"(mean of steps {TRAIN_TIMED}: {', '.join(f'{t:.3f}' for t in timed)}), "
           f"{ntok / step_ms * 1e3:.1f} tokens/s, {bound_s * 1e3 / step_ms:.4f} "
-          f"of the FLOP bound ({flops / 1e12:.1f} TFLOP at 989 TFLOP/s bf16: "
-          f"6 x {n} parameters x {ntok} tokens plus the attention's 2 + 5 "
-          f"products, remat not counted); peak device memory {peak:.3f} GB; "
-          f"losses {', '.join(f'{x:.6f}' for x in losses)}", flush=True)
+          f"of the FLOP bound ({bf16_flops / 1e12:.1f} TFLOP at 989 TFLOP/s "
+          f"bf16: 6 x {applied} parameters as applied x {ntok} tokens plus "
+          f"the attention's 2 + 5 products{ssd_txt}; remat not counted); peak "
+          f"device memory {peak:.3f} GB; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}", flush=True)
     prof = record[TRAIN_PROFILED]["prof"]
     split = train_split(prof)
     wall = record[TRAIN_PROFILED]["wall_ms"]
     if split["total"] > 0:
-        print(f"train step device time by part (torch.profiler, step "
+        print(f"train step device time by part ({arch}, torch.profiler, step "
               f"{TRAIN_PROFILED}): " + ", ".join(
                   f"{k} {v:.3f} ms ({v / split['total']:.4f})"
                   for k, v in split.items() if k != "total")
@@ -1989,16 +2283,42 @@ def phase_training(dev, fa):
         print("train step device time by part: the profiler saw no device "
               "time (not measured)", flush=True)
     del state, record, prof
-    torch.cuda.empty_cache()
-
-    err32, err16 = train_consistency(dev, cfg)
-    restart_err = train_restart(dev, cfg)
-    print(f"training phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"bwd_row": bwd_row, "fa": counts["fa"], "fa_bwd": bwd,
-            "step_ms": step_ms, "tokens_per_s": ntok / step_ms * 1e3,
+    free_device_memory()
+    return {"counts": counts, "step_ms": step_ms,
+            "tokens_per_s": ntok / step_ms * 1e3,
             "bound_share": bound_s * 1e3 / step_ms, "peak_gb": peak,
-            "split": split, "grad_err_f32": err32, "grad_err_bf16": err16,
-            "restart_err": restart_err}
+            "split": split}
+
+
+def phase_training(dev, fa, ssd):
+    """Phase 10: the FA backward kernel, then Phi-3-mini-3.8B training at
+    full width through ``train``, its f32 gradient check and the restart;
+    then the SSD backward kernel and Zamba2-2.7B training at full width
+    through ``train``, with its f32 gradient check at one group's depth."""
+    from repro_torch.configs import ARCHS
+    t_phase = time.perf_counter()
+    bwd_row = phase_fa_backward(dev, fa)
+    L = ARCHS[TRAIN_ARCH].n_layers
+    phi = train_main_path(dev, TRAIN_ARCH, dict(fa=2 * L, fa_bwd=L, ssd=0, ssd_bwd=0))
+    err32, err16 = train_consistency(dev, ARCHS[TRAIN_ARCH])
+    restart_err = train_restart(dev, ARCHS[TRAIN_ARCH])
+    print(f"phi3 training {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_hybrid = time.perf_counter()
+    ssd_row = phase_ssd_backward(dev, ssd)
+    kinds = ARCHS[HYBRID_ARCH].layer_kinds()
+    n_attn, n_ssm = kinds.count("attn_shared"), kinds.count("ssm")
+    zamba = train_main_path(dev, HYBRID_ARCH, dict(
+        fa=2 * n_attn, fa_bwd=n_attn, ssd=2 * n_ssm, ssd_bwd=n_ssm))
+    z32, z16 = hybrid_train_consistency(dev, ARCHS[HYBRID_ARCH])
+    print(f"zamba2 training {time.perf_counter() - t_hybrid:.1f} s; training "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"bwd_row": bwd_row, "fa": phi["counts"]["fa"],
+            "fa_bwd": phi["counts"]["fa_bwd"], "phi3": phi,
+            "grad_err_f32": err32, "grad_err_bf16": err16,
+            "restart_err": restart_err, "ssd_bwd_row": ssd_row,
+            "zamba2": zamba, "zamba2_grad_err_f32": z32,
+            "zamba2_grad_err_bf16": z16}
 
 
 def main():
@@ -2039,7 +2359,7 @@ def main():
     model_launches, _ = phase_model_path(dev)
     model_rows = phase_model_timing(dev, fa, ssd)
     families = phase_families(dev)
-    training = phase_training(dev, fa)
+    training = phase_training(dev, fa, ssd)
 
     main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
@@ -2076,11 +2396,13 @@ def main():
             by_path.update({f"{FAMILY_RUNS[a]['path']} prefill": f["fa"]
                             for a, f in families.items()})
             by_path["phi3 train"] = training["fa"]
+            by_path["zamba2 train"] = training["zamba2"]["counts"]["fa"]
             shapes = model_rows["fa_shapes"]
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 launches_per=f"one prefill of each path and {TRAIN_STEPS} "
-                             f"phi3 train steps (forward and remat recompute)",
+                             f"phi3 and zamba2 train steps (forward and remat "
+                             f"recompute)",
                 max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes),
                                 training["bwd_row"]["forward_with_stats_err"]),
                 forward_with_stats_max_abs_err=training["bwd_row"][
@@ -2088,6 +2410,13 @@ def main():
                 shapes=[{k: x[k] for k in ("path", "shape", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
                                            "library")} for x in shapes])
+        else:
+            by_path = {"zamba2 prefill": model_launches["ssd"],
+                       "zamba2 train": training["zamba2"]["counts"]["ssd"]}
+            entry.update(
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                launches_per=f"one zamba2-2.7b prefill and {TRAIN_STEPS} "
+                             f"zamba2 train steps (forward and remat recompute)")
         kernels.append(entry)
     r = training["bwd_row"]
     kernels.append({
@@ -2095,9 +2424,10 @@ def main():
         "replaces": FA_BWD_REPLACES,
         "replaces_what": "XLA's gradient of chunked_attention: the JAX "
                          "package has no backward kernel",
-        "launches": training["fa_bwd"],
-        "launches_by_path": {"phi3 train": training["fa_bwd"]},
-        "launches_per": f"{TRAIN_STEPS} phi3 train steps",
+        "launches": training["fa_bwd"] + training["zamba2"]["counts"]["fa_bwd"],
+        "launches_by_path": {"phi3 train": training["fa_bwd"],
+                             "zamba2 train": training["zamba2"]["counts"]["fa_bwd"]},
+        "launches_per": f"{TRAIN_STEPS} phi3 and {TRAIN_STEPS} zamba2 train steps",
         "kernels_per_launch": FA_BWD_KERNELS,
         "kernels": "bf16: fa_bwd_delta_kernel, fa_bwd_dkdv_wgmma_kernel, "
                    "fa_bwd_dq_wgmma_kernel (wgmma + TMA, the forward's "
@@ -2114,6 +2444,32 @@ def main():
         "tflops_7_products": r["tflops_7"],
         "forward_ms": r["forward_ms"],
         "forward_with_stats_ms": r["forward_with_stats_ms"],
+    })
+    r = training["ssd_bwd_row"]
+    kernels.append({
+        "name": "ssd_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": SSD_BWD_REPLACES,
+        "replaces_what": "XLA's gradient of ssd_chunked: the JAX package has "
+                         "no backward kernel",
+        "launches": training["zamba2"]["counts"]["ssd_bwd"],
+        "launches_by_path": {"zamba2 train": training["zamba2"]["counts"]["ssd_bwd"]},
+        "launches_per": f"{TRAIN_STEPS} zamba2 train steps",
+        "kernels_per_launch": SSD_BWD_KERNELS,
+        "kernels": "ssd_bwd_chunk_kernel (dS and the state gradients), "
+                   "ssd_bwd_pass_kernel (reverse inter-chunk pass), "
+                   "ssd_bwd_grad_kernel (dB, dC; dx, x·du), "
+                   "ssd_bwd_cumsum_kernel (f64 reverse cumsum, ddt, dA)",
+        "max_abs_err": r["err"], "max_abs_err_by_type": r["worst"],
+        "max_rel_err": r["rel_err"], "max_rel_err_by_type": r["worst_rel"],
+        "max_rel_err_is": "max |kernel - plain| / max |plain| per gradient, "
+                          "less one bf16 spacing where stored in bf16",
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "library": "none: no PyTorch call computes the SSD backward",
+        "shape": r["shape"], "main_shape_check": r["main_shape"],
+        "split_ms": r["split"], "tflops": r["tflops"],
+        "kernel_tflops": r["kernel_tflops"],
+        "forward_with_scratch_ms": r["forward_with_scratch_ms"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.launch.train``.  It composes the port's substrate:
 the streaming data pipeline (Emitter → SPSC ring), the train step (the
-flash-attention kernel forward and backward on the card), async
+flash-attention and SSD kernels forward and backward on the card), async
 checkpointing (the Collector thread) and deterministic replay after a
 restart.  It runs on the card unless ``device="cpu"`` is given.  The
 reference's ``mesh`` and ``dp_axes`` arguments come with the port's

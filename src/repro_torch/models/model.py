@@ -17,8 +17,8 @@ The stacks run as Python loops over the leading axes (the reference's
 leaf gives.  ``prefill`` and ``loss_fn`` are where the hand-written kernels
 run on the card: every attention block, self or cross, goes through the
 flash-attention kernel (forward, and under autograd its backward kernel)
-and every Mamba2 block through the SSD kernel, which has no backward
-kernel yet, so the ssm and hybrid families train only on the CPU.
+and every Mamba2 block through the SSD kernels (forward, and under
+autograd their backward kernels), so every family trains on the card.
 ``decode_step`` is plain PyTorch, as in the reference.  Caches are
 returned as new tensors; the inputs are never written.
 

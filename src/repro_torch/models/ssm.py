@@ -4,9 +4,11 @@ Counterpart of ``repro.models.ssm``.  The SSD recurrence
 h_t = a_t·h_{t-1} + dt_t·(B_t ⊗ x_t),  y_t = C_t·h_t + D·x_t  is evaluated
 chunk by chunk: inside a chunk everything is dense products, and chunks
 are connected by the carried (B, H, P, N) state.  On CUDA tensors
-:func:`ssd_chunked` runs the hand-written SSD kernel
-(``repro_torch.kernels.ssd_scan``), ``h0`` and ``compute_dtype`` included;
-on CPU tensors it runs the plain chunked form.
+:func:`ssd_chunked` runs the hand-written SSD kernels
+(``repro_torch.kernels.ssd_scan``), ``h0`` and ``compute_dtype`` included,
+and under autograd their hand-written backward (``SsdScanFn``): A =
+-exp(A_log), dt and x reach it as nodes of the graph, so the block's
+parameters train on the card; on CPU tensors it runs the plain chunked form.
 
 Shapes: u (B, T, d_model); internally x (B, T, H, P) with H·P = d_inner,
 B/C (B, T, N) single-group, dt (B, T, H), A (H,) negative reals.

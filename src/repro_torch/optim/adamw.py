@@ -9,10 +9,15 @@ Where the reference donates its buffers (``donate_argnums``), the port
 updates in place: ``adamw_update`` writes the parameters, the moments and
 the step counter it is given, and ``clip_by_global_norm`` scales the
 gradients it is given.  Both walk a stacked leaf (three or more
-dimensions) one index of its leading axis at a time, so the f32
-temporaries of a step are one layer's, not the whole stack's: at
-Phi-3-mini's width one f32 copy of ``blocks/mlp/w_gate`` would be 3.2 GB.
-The arithmetic is elementwise, so the walk does not change it.
+dimensions, at least ``SLICE_MIN`` elements an index) one index of its
+leading axis at a time, so the f32 temporaries of a step are one layer's,
+not the whole stack's: at Phi-3-mini's width one f32 copy of
+``blocks/mlp/w_gate`` would be 3.2 GB.  A smaller leaf goes whole: its
+temporaries are small, and walking it would cost launches, not memory
+(Zamba2's shared attention block is not a stack: its (2560, 32, 80)
+projections, walked by their first axis, took 7680 slices and ~4.6 s of
+host time a step).  The arithmetic is elementwise, so the walk does not
+change it.
 """
 from __future__ import annotations
 
@@ -33,10 +38,14 @@ class AdamWState(NamedTuple):
     nu: Any
 
 
+SLICE_MIN = 1 << 20    # elements an index of a leaf walked by layer holds
+
+
 def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
-    """Views of ``t`` one leading index at a time for a stacked leaf,
-    else ``t`` itself."""
-    if t.dim() >= 3:
+    """Views of ``t`` one leading index at a time for a stacked leaf (three
+    or more dimensions, at least SLICE_MIN elements an index), else ``t``
+    itself."""
+    if t.dim() >= 3 and t.numel() // t.shape[0] >= SLICE_MIN:
         yield from t.unbind(0)
     else:
         yield t

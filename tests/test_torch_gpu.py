@@ -3,7 +3,9 @@ warp kernel at every Qp up to 1024, the block kernel above) held against
 their plain PyTorch version on the card, exactly, and the farm search
 launching them once per task or once per chunk of the database; the flash-attention kernels (bf16: wgmma with
 TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernels
-(five passes per call) against their plain versions, on their edge cases;
+(five passes per call) and their backward (four kernels per call) against
+their plain versions, on their edge cases; training steps of every family
+through the kernels, forward and backward, against the CPU;
 the Zamba2 smoke prefill launching both; the MoE grouped dispatch against
 its dense oracle, and the smoke prefill of the moe, vlm and audio families
 through the FA kernel.  They carry the ``gpu`` marker
@@ -256,17 +258,12 @@ def _ssd_inputs(dev, b, T, H, P, N, dtype, seed, with_h0):
     return x, dt, A, B, C, h0
 
 
-# SSD tolerance: 1e-4 with f32 products (tests/test_kernels.py:146), chunk
-# sums of up to 256 terms taken in another order; 5e-2 with bf16 products,
-# the reference's bf16 tolerance: a sum in another order can round one
-# bf16 operand to its neighbour.
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
-# The five-pass kernel's edges: one chunk (T = l), chunks of 8, 16 and 32
-# (under one 64-row tile), 96 and 15 (ragged tiles), 1024; P = 16 with
-# N = 128; H = 3; h0 given and not; 64 chunks in the inter-chunk pass;
-# P = 5, N = 7 and chunk 70, which take the scalar staging paths.
-@pytest.mark.parametrize("b,T,H,P,N,chunk,with_h0", [
+# The SSD kernels' edges, forward and backward: one chunk (T = l), chunks
+# of 8, 16 and 32 (under one 64-row tile), 96 and 15 (ragged tiles), 1024;
+# P = 16 with N = 128; H = 3; h0 given and not; 64 chunks in the
+# inter-chunk pass; P = 5, N = 7 and chunk 70, which take the scalar
+# staging paths.
+SSD_EDGES = [
     (1, 32, 2, 8, 16, 8, False),
     (2, 64, 3, 8, 16, 16, True),
     (1, 128, 4, 16, 32, 32, False),
@@ -279,7 +276,16 @@ def _ssd_inputs(dev, b, T, H, P, N, dtype, seed, with_h0):
     (2, 2048, 3, 64, 128, 1024, False),
     (1, 4096, 8, 64, 64, 64, True),
     (1, 140, 3, 5, 7, 70, True),
-])
+]
+
+
+# SSD tolerance: 1e-4 with f32 products (tests/test_kernels.py:146), chunk
+# sums of up to 256 terms taken in another order; 5e-2 with bf16 products,
+# the reference's bf16 tolerance: a sum in another order can round one
+# bf16 operand to its neighbour.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,T,H,P,N,chunk,with_h0", SSD_EDGES)
 def test_ssd_kernel_equals_plain_on_card(dev, dtype, cd, b, T, H, P, N,
                                          chunk, with_h0):
     from repro_torch.kernels import ssd_scan as ssd
@@ -598,21 +604,89 @@ def test_fa_forward_without_grad_writes_no_stats_on_card(dev, monkeypatch):
 
 
 def test_kernels_without_a_backward_refuse_autograd_on_card(dev):
-    """ssd_scan and sw_batch have no backward kernel: under autograd on the
-    card they raise instead of returning a result with no gradient."""
-    from repro_torch.kernels import smith_waterman as sw
-    from repro_torch.kernels import ssd_scan as ssd
-    x, dt, A, B, C, _ = _ssd_inputs(dev, 1, 64, 2, 8, 16, torch.float32, 1, False)
-    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
-        ssd.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=32)
-    with torch.no_grad():
-        ssd.ssd_scan(x, dt, A, B, C, chunk=32)
+    """sw_batch has no backward kernel: under autograd on the card it raises
+    instead of returning a result with no gradient."""
     prof, q_len = ops.build_profile(_codes(np.random.default_rng(0), 40).to(dev),
                                     ops.BLOSUM50.to(dev))
     subj = _codes(np.random.default_rng(1), 64).to(dev)[None]
     with pytest.raises(NotImplementedError, match="backward kernel"):
         sw.sw_batch(prof.requires_grad_(), subj, gap_open=10.0,
                     gap_extend=2.0, q_len=q_len)
+
+
+# -- the SSD backward kernels ---------------------------------------------------
+# SSD_EDGES, in both x dtypes and both compute dtypes, with a cotangent on
+# y and, where h0 is given, on the final state too.  Each gradient within
+# SSD_BWD_TOL of its own max |plain| (1e-4 with f32 products: sums of up to
+# a chunk's terms, and of the heads, in another order; 5e-2 with bf16
+# products, the forward's bf16 tolerance), plus, for a gradient stored in
+# bf16 (dx, dB, dC of bf16 inputs), one bf16 spacing of the element (2^-7
+# of |plain|): two f32 values a rounding apart can round to neighbouring
+# bf16 values.  With f32 products at chunks over 256 the plain backward
+# runs in float64, as the forward's witness does.
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _ssd_grad_close(got, want, tol):
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        diff = (g.double() - w.double()).abs()
+        if g.dtype == torch.bfloat16:
+            diff = (diff - 2.0 ** -7 * w.double().abs()).clamp(min=0)
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float(diff.max()) <= tol * scale, (name, float(diff.max()), scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,T,H,P,N,chunk,with_h0", SSD_EDGES)
+def test_ssd_backward_kernel_equals_plain_on_card(dev, dtype, cd, b, T, H, P,
+                                                  N, chunk, with_h0):
+    from repro_torch.kernels import ssd_scan as ssd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, b, T, H, P, N, dtype, T + H + 1, with_h0)
+    g = torch.Generator(device=dev).manual_seed(T + N)
+    dy = torch.randn((b, T, H, P), generator=g, device=dev)
+    dh = torch.randn((b, H, P, N), generator=g, device=dev) if with_h0 else None
+    y, h, scratch = ssd.ssd_forward_with_scratch(x, dt, A, B, C, chunk=chunk,
+                                                 h0=h0, compute_dtype=cd)
+    before = ssd.bwd_launch_count()
+    got = ssd.ssd_backward(x, dt, A, B, C, chunk, dy, scratch, dh_final=dh,
+                           h0=h0, compute_dtype=cd)
+    assert ssd.bwd_launch_count() == before + 1
+    witness = cd == torch.float32 and chunk > 256
+    want = ssd.ssd_backward_plain(x, dt, A, B, C, chunk, dy, dh_final=dh, h0=h0,
+                                  compute_dtype=torch.float64 if witness else cd)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in got[:5]] == [dtype, torch.float32, torch.float32,
+                                          dtype, dtype]
+    _ssd_grad_close(got, want, SSD_BWD_TOL[cd])
+
+
+def test_ssd_backward_is_deterministic_on_card(dev):
+    """No atomics: two backward calls give the same bits, and autograd
+    through SsdScanFn gives a direct call's, in both compute dtypes."""
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, 2, 512, 8, 64, 64, torch.bfloat16, 5, True)
+    dy = torch.randn((2, 512, 8, 64), device=dev)
+    for cd in (torch.float32, torch.bfloat16):
+        _, _, scratch = ssd.ssd_forward_with_scratch(x, dt, A, B, C, chunk=128,
+                                                     h0=h0, compute_dtype=cd)
+        one = ssd.ssd_backward(x, dt, A, B, C, 128, dy, scratch, h0=h0,
+                               compute_dtype=cd)
+        two = ssd.ssd_backward(x, dt, A, B, C, 128, dy, scratch, h0=h0,
+                               compute_dtype=cd)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C, h0)]
+        f0, b0 = ssd.launch_count(), ssd.bwd_launch_count()
+        y, _ = ssd.ssd_scan(*leaves[:5], chunk=128, h0=leaves[5], compute_dtype=cd)
+        y.backward(dy)
+        assert (ssd.launch_count() - f0, ssd.bwd_launch_count() - b0) == (1, 1)
+        torch.cuda.synchronize()
+        for a, b_, leaf in zip(one, two, leaves):
+            assert torch.equal(a, b_) and torch.equal(a, leaf.grad)
 
 
 # -- training on the card -----------------------------------------------------
@@ -626,24 +700,31 @@ def _grad_leaves(params, batch, cfg):
 @pytest.mark.parametrize("arch,n_fa", [("phi3-mini-3.8b", 2),
                                        ("mixtral-8x7b", 2),
                                        ("llama-3.2-vision-90b", 10),
-                                       ("musicgen-medium", 2)])
+                                       ("musicgen-medium", 2),
+                                       ("mamba2-130m", 0),
+                                       ("zamba2-2.7b", 2)])
 def test_train_step_on_card_equals_cpu(dev, arch, n_fa):
     """The smoke model's loss and gradients on the card (every attention
-    block through the FA kernel forward and backward, remat on) against
-    the plain path on the CPU with the same weights and batch, in f32: the
+    block through the FA kernel forward and backward, every Mamba2 block
+    through the SSD kernels forward and backward, remat on) against the
+    plain path on the CPU with the same weights and batch, in f32: the
     loss within 1e-4, each gradient leaf within 1e-4 of its largest |g| (the
     CPU parity tests' limit against JAX).  Then one make_train_step on the
     card: FA forward launches twice per block (the forward and the remat
-    recompute), one backward launch per block, finite metrics that match
-    the CPU step's."""
+    recompute), one backward launch per block; SSD forward once per Mamba2
+    block, twice in the hybrid family, whose groups are recomputed (the ssm
+    family has no remat, as in the reference), one backward launch per
+    block; finite metrics that match the CPU step's."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_init
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ARCHS[arch].smoke().replace(dtype="float32", remat=True)
+    n_ssd = sum(k == "ssm" for k in cfg.layer_kinds())
     params = init_params(cfg, 0, device="cpu")
     np_batch = SyntheticLM(cfg, 2, 32, seed=1)(0)
     cpu_batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
@@ -656,33 +737,16 @@ def test_train_step_on_card_equals_cpu(dev, arch, n_fa):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
     step = make_train_step(cfg, peak_lr=1e-3, warmup=1)
     f0, b0 = fa.launch_count(), fa.bwd_launch_count()
+    s0, sb0 = ssd.launch_count(), ssd.bwd_launch_count()
     _, _, m = step(dev_params, adamw_init(dev_params), dev_batch)
     torch.cuda.synchronize()
     assert fa.launch_count() - f0 == 2 * n_fa
     assert fa.bwd_launch_count() - b0 == n_fa
+    remat = 2 if cfg.family == "hybrid" else 1
+    assert ssd.launch_count() - s0 == remat * n_ssd
+    assert ssd.bwd_launch_count() - sb0 == n_ssd
     _, _, m_cpu = step(params, adamw_init(params), cpu_batch)
     for key in ("loss", "ce", "aux", "grad_norm"):
         assert torch.isfinite(m[key]).all()
         assert abs(float(m[key]) - float(m_cpu[key])) <= 1e-4 * max(
             1.0, abs(float(m_cpu[key]))), key
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
-def test_ssm_families_refuse_training_on_card(dev, arch):
-    """The SSD kernel has no backward yet: training the ssm and hybrid
-    families on the card raises, naming it, instead of dropping the
-    gradient; their prefill still runs."""
-    from repro_torch.configs import ARCHS
-    from repro_torch.data import SyntheticLM
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params, prefill
-    from repro_torch.optim import adamw_init
-    cfg = ARCHS[arch].smoke().replace(dtype="float32")
-    params = init_params(cfg, 0, device=dev)
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in SyntheticLM(cfg, 2, 32, seed=1)(0).items()}
-    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
-        make_train_step(cfg)(params, adamw_init(params), batch)
-    with torch.no_grad():
-        logits, _ = prefill(params, {"tokens": batch["tokens"]}, cfg)
-    assert torch.isfinite(logits).all()

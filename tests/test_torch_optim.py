@@ -2,8 +2,8 @@
 
 The same numpy trees go through ``repro.optim`` and ``repro_torch.optim``:
 the cosine schedule, global-norm clipping, AdamW (f32 and bf16 moments,
-1-d leaves without weight decay, stacked leaves walked one layer at a
-time), int8 quantisation and gradient accumulation.  Tolerance 1e-6
+1-d leaves without weight decay, large stacked leaves walked one layer
+at a time), int8 quantisation and gradient accumulation.  Tolerance 1e-6
 (absolute, on values of order 1; the bf16 moments within one bf16 ulp):
 the same f32 arithmetic, with sums taken in another order.  Then the
 port's versions of the reference's own optimizer tests.
@@ -94,6 +94,36 @@ def test_adamw_update_matches_jax(moments, params_dtype):
     mtol = TOL if moments == "float32" else ulp
     _close(to.mu, jo.mu, mtol)
     _close(to.nu, jo.nu, mtol)
+
+
+def test_adamw_walks_a_leaf_by_layer_only_where_a_layer_is_large(monkeypatch):
+    """A leaf of three or more dimensions is walked one index of its leading
+    axis at a time where an index holds SLICE_MIN elements or more (a layer
+    of a stack at full width); a shared block's (d, H, hd) leaf at Zamba2's
+    width goes whole.  The walk does not change the update: with SLICE_MIN
+    lowered so that the test tree's stacked leaf is walked by layer, three
+    unclipped steps give the whole-leaf steps' parameters and moments bit
+    for bit, and the grad norm within 1e-6 of it (a sum in parts)."""
+    from repro_torch.optim import adamw
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    assert len(list(adamw._slices(meta(2560, 32, 80)))) == 1
+    assert len(list(adamw._slices(meta(32, 3072, 8192)))) == 32
+    assert len(list(adamw._slices(meta(4096, 8192)))) == 1
+    runs = []
+    for smin in (adamw.SLICE_MIN, 1):
+        monkeypatch.setattr(adamw, "SLICE_MIN", smin)
+        assert len(list(adamw._slices(torch.empty((3, 4, 5))))) == (3 if smin == 1 else 1)
+        tp = _t(_tree(2))
+        to = topt.adamw_init(tp)
+        norms = []
+        for i in range(3):
+            tp, to, met = topt.adamw_update(tp, _t(_tree(10 + i)), to, lr=1e-2,
+                                            max_grad_norm=1e3)
+            norms.append(float(met["grad_norm"]))
+        runs.append((tree_leaves(tp) + tree_leaves(to.mu) + tree_leaves(to.nu), norms))
+    (whole, n_whole), (walked, n_walked) = runs
+    assert all(torch.equal(a, b) for a, b in zip(whole, walked))
+    np.testing.assert_allclose(n_walked, n_whole, rtol=1e-6, atol=0)
 
 
 def test_adamw_skips_weight_decay_on_1d_leaves():
