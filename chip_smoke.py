@@ -72,7 +72,7 @@ Phases, each on lines of its own; any failed check exits non-zero:
       the peak memory; at 2 layers the f32 gradients through the kernels
       against naive attention (bf16 must miss the limit) and a restart
       from a checkpoint after an injected failure, equal to an
-      uninterrupted run; then the SSD backward (four CUDA kernels per
+      uninterrupted run; then the SSD backward (eight CUDA kernels per
       call, counted as one launch) against its plain version on phase 6's
       SSD cases, with kernel, per-kernel, plain and bound times at
       Zamba2's shape; Zamba2-2.7B trained at full width through
@@ -169,6 +169,9 @@ SSD_CASES = [  # b, T, H, P, N, chunk, with h0
     (2, 2048, 24, 64, 128, 1024, False),
     (1, 4096, 8, 64, 64, 64, True),
     (1, 140, 3, 5, 7, 70, True),
+    # the backward's ragged head groups and H·P slices (16 heads each):
+    # H = 7, H·P = 280, P = 40
+    (1, 256, 7, 40, 64, 128, True),
 ]
 # The bf16 FA kernel's edges (B, H, Hkv, S, T, D, window, q_offset, causal):
 # every head dim; S and T of 1, 63, 65, 257 and below its 128-row kv tile;
@@ -204,6 +207,7 @@ FA_SHAPES = [
     ("musicgen prefill", 2, 32, 32, 1500, 1500, 64, True, None),
 ]
 SSD_SERIAL_MS = 4.9933        # the replaced SSD kernel (chunks in order per (batch, head)) there
+SSD_FWD_MS = 1.0636           # the SSD forward there before the backward's redesign (PERF.md §6)
 SSD_KERNEL = re.compile(r"ssd_\w*kernel")   # the five passes' kernel names
 
 
@@ -654,18 +658,24 @@ def kernel_name(mangled):
     return mangled
 
 
+def ptxas_name(mangled):
+    """``kernel_name``, with ``[bf16]`` after an instance of bf16 inputs."""
+    return kernel_name(mangled) + ("[bf16]" if "nv_bfloat16" in mangled else "")
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     _build.load_all()
     wall = time.perf_counter() - t0
     for name in _build.SOURCES:
         secs, log = _build.build_info(name)
-        print(f"build {name}.cu: {secs:.1f} s nvcc", flush=True)
+        print(f"build {name}.cu: " + (log.splitlines()[0] if log.startswith("reused")
+                                      else f"{secs:.1f} s nvcc"), flush=True)
+        for entry, (regs, stores, loads) in _build.ptxas_usage(log).items():
+            print(f"  ptxas: {ptxas_name(entry)}: {regs} registers, {stores} bytes "
+                  f"spill stores, {loads} bytes spill loads", flush=True)
         for line in log.splitlines():
-            entry = re.search(r"Compiling entry function '(\w+)'", line)
-            if entry:
-                print(f"  ptxas: {kernel_name(entry.group(1))}", flush=True)
-            elif "registers" in line or "spill" in line or "arning" in line:
+            if "arning" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     print(f"build: {len(_build.SOURCES)} sources in {wall:.1f} s wall "
           f"(one nvcc each, started together)", flush=True)
@@ -1066,6 +1076,21 @@ def ssd_bwd_flops(b, T, H, P, N, l):
     return 2 * b * nc * (H * (2 * P * tri + 4 * l * N * P) + 2 * N * tri)
 
 
+def ssd_bwd_tf32_flops(b, T, H, P, N, l, x_dtype, bc_dtype):
+    """The least operations of the SSD backward as 3xTF32 products: each of
+    ``ssd_bwd_flops``'s products once per TF32 term it needs, by the dtypes
+    of its operands.  Two terms where one operand is bf16, whose low part
+    is zero: dy·xᵀ (dt_j a column scale after it) with bf16 x; the state
+    gradient C·dy, g·B, dS·B and dSᵀ·C with bf16 B and C.  Three where both
+    are f32: G·dy and the dB/dC head terms h_inᵀ·dy and gᵀ·u (u = dt·x,
+    whose dt differs by head along the H·P axis)."""
+    nc, tri = T // l, l * (l + 1) // 2
+    tx = 2 if x_dtype == torch.bfloat16 else 3
+    tbc = 2 if bc_dtype == torch.bfloat16 else 3
+    per_head = (tx + 3) * P * tri + (2 * tbc + 2 * 3) * l * N * P
+    return 2 * b * nc * (H * per_head + 2 * tbc * N * tri)
+
+
 def ssd_bwd_kernel_flops(b, T, H, P, N, l):
     """What the backward kernels do instead: the causal products over whole
     64 x 64 tiles and a fifth l·N·P product (C·h_in, which the forward
@@ -1180,7 +1205,8 @@ def phase_model_timing(dev, fa, ssd):
     print(f"timing ssd five-pass kernels: {flops / (kern * 1e-3) / 1e12:.1f} "
           f"TFLOP/s, {rows['ssd']['bound_ms'] / kern:.4f} of the bound; the "
           f"one-block-per-(batch, head) kernel it replaced read {SSD_SERIAL_MS} "
-          f"ms ({SSD_SERIAL_MS / kern:.2f}x this one)", flush=True)
+          f"ms ({SSD_SERIAL_MS / kern:.2f}x this one); {kern / SSD_FWD_MS:.4f} "
+          f"of the {SSD_FWD_MS} ms read before the backward's redesign", flush=True)
     # one main-shape call split by pass (torch.profiler, device time)
     from torch.profiler import ProfilerActivity, profile
     reps = 5
@@ -1556,7 +1582,7 @@ FA_BWD_EDGES = [
 # unchecked; the L2 norm would see such a half wrong at about 0.3.
 BF16_GRAD_REL = 1e-2
 TRAIN_SPANS = ("train.adamw", "train.ce")    # profiler ranges of the step split
-# The SSD backward (four CUDA kernels per call, counted as one launch)
+# The SSD backward (eight CUDA kernels per call, counted as one launch)
 # against ssd_backward_plain on SSD_CASES, both x dtypes and both compute
 # dtypes: each gradient within SSD_TOL of its own max |plain| (float64 plain
 # at chunks over SSD_WITNESS_CHUNK with f32 products), plus, where the
@@ -1566,7 +1592,7 @@ TRAIN_SPANS = ("train.adamw", "train.ce")    # profiler ranges of the step split
 # differentiates the model's ssd_chunked.
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 SSD_BWD_REPLACES = "src/repro/models/ssm.py:66"
-SSD_BWD_KERNELS = 4
+PEAK_TF32 = 495e12            # H100 SXM dense TF32 tensor-core rate, FLOP/s
 BF16_SPACING = 2.0 ** -7
 SSD_BWD_KERNEL = re.compile(r"ssd_bwd_\w*kernel")
 SSD_BWD_SHAPE = (PREFILL_B, PREFILL_S, 80, 64, 64, 256)   # Zamba2's: b, T, H, P, N, chunk
@@ -2159,8 +2185,10 @@ def phase_ssd_backward(dev, ssd):
         if m and us:
             split[m.group()] = split.get(m.group(), 0.0) + us / 1e3 / reps
     flops = ssd_bwd_flops(b, T, H, P, N, l)
+    tf32 = ssd_bwd_tf32_flops(b, T, H, P, N, l, x.dtype, Bm.dtype)
     done = ssd_bwd_kernel_flops(b, T, H, P, N, l)
-    t_ops = flops / PEAK_F32
+    t_f32 = flops / PEAK_F32                          # the same work on the SIMT pipes
+    t_ops = tf32 / PEAK_TF32                          # as the kernels run it: 3xTF32
     nc = T // l
     nbytes = (2 * x.numel() * 2 + dt.numel() * 4 * 2 + A.numel() * 4 * 2
               + 4 * Bm.numel() * 2 + dy.numel() * 4     # x, dx; dt, ddt; A, dA; B, C, dB, dC; dy
@@ -2169,6 +2197,7 @@ def phase_ssd_backward(dev, ssd):
     row = dict(ms=kern, plain_ms=plain, library_ms=None,
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_f32_ms=max(t_f32, t_bytes) * 1e3, tf32_gflop=tf32 / 1e9,
                err=max(*worst_abs.values(), main_abs), worst=worst_abs,
                rel_err=max(*worst.values(), *errs.values()), worst_rel=worst,
                main_shape=errs, split=split, forward_with_scratch_ms=fwd,
@@ -2176,15 +2205,36 @@ def phase_ssd_backward(dev, ssd):
                kernel_tflops=done / (kern * 1e-3) / 1e12,
                shape=f"b={b} T={T} H={H} P={P} N={N} chunk={l} x bf16, f32 products")
     print(f"timing ssd backward {row['shape']}: kernel {kern:.4f} ms (one "
-          f"launch of {SSD_BWD_KERNELS} kernels), plain {plain:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP "
-          f"at 67 TFLOP/s f32; {nbytes / 1e6:.1f} MB {t_bytes * 1e3:.4f} ms), "
-          f"{row['bound_ms'] / kern:.4f} of the bound, {row['tflops']:.2f} "
+          f"launch of {len(ssd.BWD_KERNELS)} kernels), plain {plain:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: 3xTF32, "
+          f"{tf32 / 1e9:.2f} GFLOP of TF32 terms, 2 a product with a bf16 "
+          f"operand and 3 with two f32, at 495 TFLOP/s TF32; "
+          f"{nbytes / 1e6:.1f} MB {t_bytes * 1e3:.4f} ms), "
+          f"{row['bound_ms'] / kern:.4f} of it; f32 SIMT bound "
+          f"{row['bound_f32_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s "
+          f"f32), {row['bound_f32_ms'] / kern:.4f} of it; {row['tflops']:.2f} "
           f"TFLOP/s of the least work, {row['kernel_tflops']:.2f} TFLOP/s of "
           f"the {done / 1e9:.2f} GFLOP the kernels do; library: none (no "
           f"PyTorch call computes it); forward with its scratch {fwd:.4f} ms; "
           f"max |diff| / max |plain| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    from repro_torch.kernels import _build
+    log = _build.build_info("ssd_scan_bwd")[1]
+    regs = {ptxas_name(k): v for k, v in _build.ptxas_usage(log).items()}
+    if not regs:
+        print(f"ssd backward ptxas counts not available: "
+              f"{(log.splitlines() or ['no build log'])[0]}"
+              f" (the library was reused without its build log)", flush=True)
+    configs = ssd.backward_kernel_configs(b, T, H, P, N, l, torch.bfloat16)
+    row["kernel_configs"] = {}
+    for name, grid, block, smem in configs:
+        inst = {k: v for k, v in regs.items() if k.split("<")[0].split("[")[0] == name}
+        row["kernel_configs"][name] = dict(grid=grid, block=block, smem=smem,
+                                           ptxas=inst)
+        print(f"ssd backward kernel {name} at Zamba2's shape: grid {grid}, block "
+              f"{block}, {smem} B dynamic shared memory; ptxas (registers, spill "
+              f"stores, spill loads) " + ", ".join(
+                  f"{k} {v}" for k, v in inst.items()), flush=True)
     print(f"ssd backward kernels at Zamba2's shape (torch.profiler over {reps} "
           f"calls, ms per call): " + (
               ", ".join(f"{k} {v:.4f}" for k, v in split.items())
@@ -2454,17 +2504,27 @@ def main():
         "launches": training["zamba2"]["counts"]["ssd_bwd"],
         "launches_by_path": {"zamba2 train": training["zamba2"]["counts"]["ssd_bwd"]},
         "launches_per": f"{TRAIN_STEPS} zamba2 train steps",
-        "kernels_per_launch": SSD_BWD_KERNELS,
-        "kernels": "ssd_bwd_chunk_kernel (dS and the state gradients), "
+        "kernels_per_launch": len(ssd.BWD_KERNELS),
+        "kernels": "ssd_bwd_ds_kernel (dS per head group, dcs partials), "
+                   "ssd_bwd_ds_sum_kernel (the groups' dS summed in order), "
+                   "ssd_bwd_state_kernel (each chunk's state gradient), "
                    "ssd_bwd_pass_kernel (reverse inter-chunk pass), "
-                   "ssd_bwd_grad_kernel (dB, dC; dx, x·du), "
-                   "ssd_bwd_cumsum_kernel (f64 reverse cumsum, ddt, dA)",
+                   "ssd_bwd_bc_heads_kernel (dB, dC head terms per H·P slice), "
+                   "ssd_bwd_bc_kernel (dS·B, dSᵀ·C and the slices' sum), "
+                   "ssd_bwd_dx_kernel (dx, x·du, s_j, the y_off term), "
+                   "ssd_bwd_cumsum_kernel (f64 reverse cumsum, ddt, dA); "
+                   "products on the tensor cores as 3xTF32 (mma.sync)",
+        "kernel_configs": r["kernel_configs"],
         "max_abs_err": r["err"], "max_abs_err_by_type": r["worst"],
         "max_rel_err": r["rel_err"], "max_rel_err_by_type": r["worst_rel"],
         "max_rel_err_is": "max |kernel - plain| / max |plain| per gradient, "
                           "less one bf16 spacing where stored in bf16",
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
+        "bound_by": r["bound_by"], "bound_is": "3xTF32: the least products "
+        "at 2 TF32 terms where an operand is bf16, 3 where both are f32, at "
+        "495 TFLOP/s", "bound_tf32_gflop": r["tf32_gflop"],
+        "bound_f32_ms": r["bound_f32_ms"],
+        "library_ms": None,
         "library": "none: no PyTorch call computes the SSD backward",
         "shape": r["shape"], "main_shape_check": r["main_shape"],
         "split_ms": r["split"], "tflops": r["tflops"],

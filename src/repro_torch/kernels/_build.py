@@ -4,8 +4,10 @@ Each source has a plain C interface, so it compiles in seconds without
 PyTorch's headers.  The shared library goes into ``build/repro_torch/`` at
 the root of the checkout (git-ignored), named by a hash of the source, the
 local headers it includes (``#include "..."``, e.g. ``csrc/fa_hopper.cuh``)
-and the flags, so an edited source or header never loads a stale build.
-The build runs once per process, under a lock per source, at the first
+and the flags, so an edited source or header never loads a stale build;
+nvcc's output (ptxas's register and spill counts) is kept beside it as
+``.log`` and read back when the library is reused.  The build runs once
+per process, under a lock per source, at the first
 launch — never at import; different sources build concurrently
 (``load_all``).
 """
@@ -20,10 +22,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "load", "load_all",
-           "build_info"]
+           "build_info", "compile_source", "ptxas_usage"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -73,23 +75,33 @@ def _digest(src: Path) -> str:
     return digest.hexdigest()[:12]
 
 
-def _build(name: str) -> ctypes.CDLL:
-    src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
-    if lib.exists():
-        _INFO[name] = (0.0, f"reused {lib}")
-        return ctypes.CDLL(str(lib))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+def compile_source(src: Path, out: Path) -> Tuple[float, str]:
+    """nvcc ``src`` with ``NVCC_FLAGS`` into the shared library ``out``;
+    returns ``(seconds, nvcc output)``, raises with that output on failure."""
+    cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     dt = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
+        out.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n"
                            f"{' '.join(cmd)}\n{log}")
+    return dt, log
+
+
+def _build(name: str) -> ctypes.CDLL:
+    src = CSRC / f"{name}.cu"
+    lib = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
+    saved = lib.with_suffix(".log")
+    if lib.exists():
+        log = saved.read_text() if saved.exists() else ""
+        _INFO[name] = (0.0, f"reused {lib}\n{log}")
+        return ctypes.CDLL(str(lib))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    dt, log = compile_source(src, tmp)
+    saved.write_text(log)
     os.replace(tmp, lib)
     _INFO[name] = (dt, log)
     return ctypes.CDLL(str(lib))
@@ -130,6 +142,31 @@ def load_all(names=SOURCES) -> Dict[str, ctypes.CDLL]:
 
 
 def build_info(name: str) -> Tuple[float, str]:
-    """``(seconds, nvcc output)`` of this process's build of ``name``."""
+    """``(seconds, nvcc output)`` of this process's build of ``name``; a
+    reused library gives 0 seconds and ``reused <path>`` before the output
+    kept from its build (nothing more if that was not kept)."""
     return _INFO[name]
+
+
+def ptxas_usage(log: str) -> Dict[str, Tuple[Optional[int], Optional[int],
+                                              Optional[int]]]:
+    """``{mangled entry: (registers, spill store bytes, spill load bytes)}``
+    from ``ptxas -v`` output, in the order ptxas compiled the entries."""
+    out: Dict[str, List[Optional[int]]] = {}
+    name = props = None         # the entry being compiled; whose properties follow
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        prop = re.search(r"Function properties for (\w+)", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            name = entry.group(1)
+            out[name] = [None, None, None]
+        elif prop:
+            props = prop.group(1)
+        elif name and spill and props == name:
+            out[name][1:] = [int(spill.group(1)), int(spill.group(2))]
+        elif name and regs:
+            out[name][0] = int(regs.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 

@@ -13,8 +13,9 @@ There is no fallback from the kernels to the plain version.
 
 With grad mode on and an input that requires grad, a CUDA call goes
 through :class:`SsdScanFn`, whose backward is the hand-written kernels of
-``csrc/ssd_scan_bwd.cu`` (:func:`ssd_backward`, four kernels counted as
-one backward launch); it saves the forward's scratch (cs, CBᵀ and the
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_backward`, eight kernels counted as
+one backward launch, their products on the tensor cores as 3xTF32, whose
+operand split :func:`tf32_split` states in PyTorch); it saves the forward's scratch (cs, CBᵀ and the
 state entering each chunk) for them.  A CPU call runs :func:`ssd_plain`
 under autograd.  :func:`ssd_backward_plain` is the backward's plain
 version.  The JAX package has no backward kernel: XLA differentiates the
@@ -40,7 +41,8 @@ import torch
 
 __all__ = ["ssd_scan", "ssd_plain", "ssd_backward_plain", "ssd_backward",
            "ssd_forward_with_scratch", "SsdScanFn", "segsum", "launch_count",
-           "bwd_launch_count", "reset_launch_count", "MAX_P", "MAX_N",
+           "bwd_launch_count", "reset_launch_count", "tf32_split",
+           "backward_kernel_configs", "BWD_KERNELS", "MAX_P", "MAX_N",
            "MAX_CHUNK"]
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024      # the kernels' limits
@@ -48,7 +50,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.float32, torch.bfloat16)
 
 LAUNCHES = 0         # forward calls on CUDA since the last reset (5 kernels each)
-BWD_LAUNCHES = 0     # backward calls on CUDA since then (4 kernels each)
+BWD_LAUNCHES = 0     # backward calls on CUDA since then (8 kernels each)
+# The backward's kernels, in launch order (csrc/ssd_scan_bwd.cu).
+BWD_KERNELS = ("ssd_bwd_ds_kernel", "ssd_bwd_ds_sum_kernel", "ssd_bwd_state_kernel",
+               "ssd_bwd_pass_kernel", "ssd_bwd_bc_heads_kernel", "ssd_bwd_bc_kernel",
+               "ssd_bwd_dx_kernel", "ssd_bwd_cumsum_kernel")
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -76,6 +82,24 @@ def _count_launch(backward: bool = False) -> None:
             BWD_LAUNCHES += 1
         else:
             LAUNCHES += 1
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``a`` as ``hi + lo``, both TF32 values (10 explicit mantissa
+    bits), as the backward kernels split an operand before its tensor-core
+    products: ``hi`` rounds ``a`` to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``), ``lo`` rounds ``a - hi`` (exact in f32) the same
+    way.  A product of two split operands summed as hi·hi + hi·lo + lo·hi
+    (3xTF32) misses only lo·lo, 2^-22 of |a·b|.  Non-finite values pass
+    through as ``hi`` with a zero ``lo``."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(v), r, v)
+    a = a.to(torch.float32)
+    hi = rna(a)
+    lo = torch.where(torch.isfinite(a), rna(a - hi), torch.zeros_like(a))
+    return hi, lo
 
 
 def segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -272,18 +296,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
-def _bwd_lib() -> ctypes.CDLL:
-    from ._build import load
-    lib = load("ssd_scan_bwd")
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``ssd_scan_bwd.cu``
+    (also used for variants of that source built elsewhere)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssd_bwd_launch.argtypes = [p] * 17 + [i] * 8 + [p]
     lib.ssd_bwd_launch.restype = i
     lib.ssd_bwd_workspace_floats.argtypes = [i] * 6
     lib.ssd_bwd_workspace_floats.restype = ctypes.c_longlong
+    lib.ssd_bwd_kernel_configs.argtypes = [i] * 7 + [p]
+    lib.ssd_bwd_kernel_configs.restype = i
     lib.ssd_bwd_error_string.argtypes = [i]
     lib.ssd_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_lib() -> ctypes.CDLL:
+    from ._build import load
+    return _bind_bwd(load("ssd_scan_bwd"))
 
 
 def _ssd_launch(x, dt, A, B, C, h0, l, compute_dtype):
@@ -348,6 +379,21 @@ class SsdScanFn(torch.autograd.Function):
         return dx, ddt, dA, dB, dC, dh0, None, None
 
 
+def backward_kernel_configs(b: int, T: int, H: int, P: int, N: int,
+                            chunk: int, dtype: torch.dtype = torch.float32):
+    """``[(name, grid, block, dynamic shared bytes)]`` of each kernel that
+    :func:`ssd_backward` launches for these shapes and x's ``dtype``, in
+    launch order.  Builds the CUDA library (needs nvcc)."""
+    l = min(chunk, T)
+    out = (ctypes.c_longlong * (3 * len(BWD_KERNELS)))()
+    n = _bwd_lib().ssd_bwd_kernel_configs(b, T, H, P, N, l, _DTYPES[dtype],
+                                         out)
+    if n != len(BWD_KERNELS):
+        raise ValueError(f"no SSD backward launch for {(b, T, H, P, N, l)}")
+    return [(name, out[3 * k], out[3 * k + 1], out[3 * k + 2])
+            for k, name in enumerate(BWD_KERNELS)]
+
+
 def ssd_forward_with_scratch(x, dt, A, B, C, *, chunk: int = 256,
                              h0: Optional[torch.Tensor] = None,
                              compute_dtype: torch.dtype = torch.float32):
@@ -364,7 +410,7 @@ def ssd_backward(x, dt, A, B, C, chunk: int, dy, scratch, *,
                  h0: Optional[torch.Tensor] = None,
                  compute_dtype: torch.dtype = torch.float32):
     """(dx, ddt, dA, dB, dC, dh0) of ``ssd_scan`` by the CUDA backward
-    kernels: one launch (four kernels) on the current stream, no
+    kernels: one launch (eight kernels) on the current stream, no
     synchronise, no atomics (two calls give the same bits).  ``scratch`` is
     the forward's, as :func:`ssd_forward_with_scratch` returns it; dy
     (b,T,H,P) and dh_final (b,H,P,N; None is zero) are contiguous f32.

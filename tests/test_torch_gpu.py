@@ -258,6 +258,7 @@ def _ssd_inputs(dev, b, T, H, P, N, dtype, seed, with_h0):
     return x, dt, A, B, C, h0
 
 
+SSD_RAGGED_GROUPS = (1, 256, 7, 40, 64, 128, True)
 # The SSD kernels' edges, forward and backward: one chunk (T = l), chunks
 # of 8, 16 and 32 (under one 64-row tile), 96 and 15 (ragged tiles), 1024;
 # P = 16 with N = 128; H = 3; h0 given and not; 64 chunks in the
@@ -276,6 +277,9 @@ SSD_EDGES = [
     (2, 2048, 3, 64, 128, 1024, False),
     (1, 4096, 8, 64, 64, 64, True),
     (1, 140, 3, 5, 7, 70, True),
+    # the backward's head groups and H·P slices (16 heads each) left ragged:
+    # H = 7, H·P = 280, P = 40
+    SSD_RAGGED_GROUPS,
 ]
 
 
@@ -668,25 +672,27 @@ def test_ssd_backward_kernel_equals_plain_on_card(dev, dtype, cd, b, T, H, P,
 
 def test_ssd_backward_is_deterministic_on_card(dev):
     """No atomics: two backward calls give the same bits, and autograd
-    through SsdScanFn gives a direct call's, in both compute dtypes."""
+    through SsdScanFn gives a direct call's, in both compute dtypes; also
+    where the head groups and H·P slices are ragged."""
     from repro_torch.kernels import ssd_scan as ssd
-    x, dt, A, B, C, h0 = _ssd_inputs(dev, 2, 512, 8, 64, 64, torch.bfloat16, 5, True)
-    dy = torch.randn((2, 512, 8, 64), device=dev)
-    for cd in (torch.float32, torch.bfloat16):
-        _, _, scratch = ssd.ssd_forward_with_scratch(x, dt, A, B, C, chunk=128,
-                                                     h0=h0, compute_dtype=cd)
-        one = ssd.ssd_backward(x, dt, A, B, C, 128, dy, scratch, h0=h0,
-                               compute_dtype=cd)
-        two = ssd.ssd_backward(x, dt, A, B, C, 128, dy, scratch, h0=h0,
-                               compute_dtype=cd)
-        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C, h0)]
-        f0, b0 = ssd.launch_count(), ssd.bwd_launch_count()
-        y, _ = ssd.ssd_scan(*leaves[:5], chunk=128, h0=leaves[5], compute_dtype=cd)
-        y.backward(dy)
-        assert (ssd.launch_count() - f0, ssd.bwd_launch_count() - b0) == (1, 1)
-        torch.cuda.synchronize()
-        for a, b_, leaf in zip(one, two, leaves):
-            assert torch.equal(a, b_) and torch.equal(a, leaf.grad)
+    for b, T, H, P, N, chunk, _ in [(2, 512, 8, 64, 64, 128, True), SSD_RAGGED_GROUPS]:
+        x, dt, A, B, C, h0 = _ssd_inputs(dev, b, T, H, P, N, torch.bfloat16, 5, True)
+        dy = torch.randn((b, T, H, P), device=dev)
+        for cd in (torch.float32, torch.bfloat16):
+            _, _, scratch = ssd.ssd_forward_with_scratch(x, dt, A, B, C, chunk=chunk,
+                                                         h0=h0, compute_dtype=cd)
+            one = ssd.ssd_backward(x, dt, A, B, C, chunk, dy, scratch, h0=h0,
+                                   compute_dtype=cd)
+            two = ssd.ssd_backward(x, dt, A, B, C, chunk, dy, scratch, h0=h0,
+                                   compute_dtype=cd)
+            leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C, h0)]
+            f0, b0 = ssd.launch_count(), ssd.bwd_launch_count()
+            y, _ = ssd.ssd_scan(*leaves[:5], chunk=chunk, h0=leaves[5], compute_dtype=cd)
+            y.backward(dy)
+            assert (ssd.launch_count() - f0, ssd.bwd_launch_count() - b0) == (1, 1)
+            torch.cuda.synchronize()
+            for a, b_, leaf in zip(one, two, leaves):
+                assert torch.equal(a, b_) and torch.equal(a, leaf.grad)
 
 
 # -- training on the card -----------------------------------------------------
