@@ -27,7 +27,13 @@ kernel launch counts set to 0 just before it and read just after:
   f32 moments) through ``launch.train.train``, every attention block
   through the flash-attention kernel forward and its hand-written backward
   kernel; then Zamba2-2.7B at full width (all 54 layers), every Mamba2
-  block through the SSD kernels and their hand-written backward kernels.
+  block through the SSD kernels and their hand-written backward kernels;
+* keyed aggregation on the host runtime's two backends, threads and
+  procs (spawned vertex processes over shared-memory rings): the chunked
+  search's scores, one (2, 4096) int32 tensor per chunk on the card,
+  reduced per length bucket by ``reduce_by_key`` (max and count); then
+  the reference's largest out-of-core tier (a million rows, a million
+  cold keys) through ``shard_reduce`` under a 1 MiB budget per partition.
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -80,7 +86,17 @@ Phases, each on lines of its own; any failed check exits non-zero:
       the remat recompute and 45 backward a step, FA 18 and 9), and at 6
       layers its f32 gradients through the kernels against ssd_plain and
       naive attention (bf16 must miss the limit);
-  11. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  11. keyed aggregation: the chunked search once more (q=1000, 10-2k,
+      2^19 subjects, 128 launches), its (length bucket, score) chunks
+      through ``reduce_by_key(bucket, "max")`` and ``"count"`` on threads
+      and on procs (``ProcAccelerator``: 2 left and 2 right vertices; the
+      shared-memory ring moves each CUDA chunk to the host), each equal
+      to ``scatter_reduce``/``bincount`` on the card; then the
+      out-of-core tier through ``shard_reduce`` on procs and on threads,
+      each in a fresh interpreter, equal to a plain dict fold, with
+      spills; wall, rows/s, spills, stalls, peak RSS and the host's CPU
+      count; no vertex host or ``/dev/shm`` segment left;
+  12. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -226,6 +242,9 @@ def gcups(qlen, db_cells, seconds):
 
 def _watchdog(signum, frame):
     print(f"FAIL: chip_smoke exceeded {TIME_LIMIT_S} s", flush=True)
+    procgraph = sys.modules.get("repro_torch.core.procgraph")
+    if procgraph is not None:     # os._exit skips the pool's atexit hook
+        procgraph.pool_shutdown()
     os._exit(1)
 
 
@@ -2371,6 +2390,318 @@ def phase_training(dev, fa, ssd):
             "zamba2_grad_err_bf16": z16}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: keyed aggregation on the host runtime's two backends
+# ---------------------------------------------------------------------------
+KEYED_Q = 1000                # the chunked search's query and gap regime
+BUCKET = 32                   # a subject's length bucket: length // 32
+KEYED_SLOT = 33 << 10         # ring slot: one (2, 4096) int32 chunk inline
+KEYED_CAPACITY = 16           # ring slots between the scatter and the rows
+KEYED_TIMEOUT = 300.0
+# benchmarks/ooc_aggregation.py:62-64, the reference's "large" tier,
+# nothing cut: rows, hot and cold keys (80/20), per-partition budget, the
+# map-side combiner's bound, 2 x 2 vertices, rows per reader batch
+OOC = dict(nrows=1_000_000, hot=1024, cold=1_000_000, budget=1 << 20,
+           combine_limit=2 << 20, nleft=2, nright=2, batch_rows=8192)
+OOC_TIMEOUT = 600.0
+
+
+# Nodes of the phase, at module level: the procs backend's vertices are
+# spawned interpreters that re-import this file and resolve them by name.
+def explode_scores(chunk):
+    """A (2, n) int32 tensor (length buckets, scores) -> its n
+    ``(bucket, score)`` rows, one ``KeyBatch`` (one ring message per
+    destination partition)."""
+    from repro_torch.core import KeyBatch
+    buckets, scores = chunk.tolist()
+    return KeyBatch(zip(buckets, scores))
+
+
+class SynthRows:
+    """The reference benchmark's row source (benchmarks/ooc_aggregation.py):
+    ``reader(lo, hi)`` -> ``(key, value)`` rows, ~80% on ``hot`` keys and
+    ~20% over ``cold`` ones, the value a crc of the row id (the per-row
+    decode cost), deterministic from the row index alone."""
+
+    def __init__(self, nrows, hot, cold):
+        self.nrows = nrows
+        self.hot = hot
+        self.cold = cold
+
+    def __call__(self, lo, hi):
+        import zlib
+        crc = zlib.crc32
+        hot, cold = self.hot, self.cold
+        rows = []
+        for i in range(lo, hi):
+            h = (i * 2654435761) & 0xFFFFFFFF
+            k = h % hot if h % 5 else hot + (h // 5) % cold
+            rows.append((k, float(crc(b"row-%d" % i) & 0xFFFF)))
+        return rows
+
+
+def row_key(row):
+    return row[0]
+
+
+def row_stats(acc, row):
+    """Seeded fold: (count, total) per key."""
+    return (acc[0] + 1, acc[1] + row[1])
+
+
+def merge_stats(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def _rss_kb(pid="self"):
+    """Resident set of a live process now, in KB (``/proc/<pid>/statm``);
+    0 once it is gone or where the file is missing."""
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+    except (OSError, IndexError, ValueError):
+        return 0
+
+
+def ooc_child(backend):
+    """One run of the out-of-core tier on ``backend``, in a fresh
+    interpreter: prints one JSON line with the wall time (the vertices'
+    spawn included, as the reference benchmark counts it), the time to
+    the last vertex's ready, the skeleton's spill and stall counts, the
+    peak resident sets of this process and of its largest vertex process
+    (sampled every 10 ms: ``ru_maxrss`` would carry the resident set that
+    a spawned process's parent had when it forked) and whether the result
+    equals a plain dict fold of the same rows."""
+    import multiprocessing as mp
+    import threading
+    from repro_torch.core import lower, shard_reduce
+    import_kb = _rss_kb()
+    cfg = OOC
+    reader = SynthRows(cfg["nrows"], cfg["hot"], cfg["cold"])
+    skel = shard_reduce(reader, row_key, row_stats, init=(0, 0.0),
+                        combine=merge_stats, nleft=cfg["nleft"],
+                        nright=cfg["nright"], budget=cfg["budget"],
+                        batch_rows=cfg["batch_rows"],
+                        combine_limit=cfg["combine_limit"])
+    # pool=False: every vertex process starts for this run and exits
+    opts = {"pool": False} if backend == "procs" else {}
+    peaks = {"self": import_kb}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.01):
+            for pid in ["self"] + [p.pid for p in mp.active_children()]:
+                peaks[pid] = max(peaks.get(pid, 0), _rss_kb(pid))
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    g = lower(skel, backend, **opts).to_graph(None)
+    g.run()
+    if backend == "procs":
+        g.wait_ready()
+    ready = time.perf_counter() - t0
+    out = g.wait(OOC_TIMEOUT)
+    wall = time.perf_counter() - t0
+    stop.set()
+    sampler.join()
+    self_kb = peaks.pop("self")
+    t1 = time.perf_counter()
+    want = {}
+    for lo in range(0, cfg["nrows"], cfg["batch_rows"]):
+        for k, v in reader(lo, min(lo + cfg["batch_rows"], cfg["nrows"])):
+            c, t = want.get(k, (0, 0.0))
+            want[k] = (c + 1, t + v)
+    plain_s = time.perf_counter() - t1
+    got = dict(out)
+    print(json.dumps(dict(
+        backend=backend, nrows=cfg["nrows"], wall_s=wall,
+        ready_s=ready if backend == "procs" else 0.0, plain_s=plain_s,
+        pairs=len(out), keys=len(want),
+        equal=len(got) == len(out) and got == want,
+        spills=skel.stats.spills, spill_bytes=skel.stats.spill_bytes,
+        stalls=skel.stats.backpressure_stalls, self_kb=self_kb,
+        vertex_kb=max(peaks.values(), default=0), import_kb=import_kb)),
+        flush=True)
+
+
+def _shm_segments():
+    import glob
+    return sorted(glob.glob("/dev/shm/fft_*"))
+
+
+def _vertex_hosts():
+    import multiprocessing as mp
+    return [p.name for p in mp.active_children() if p.name.startswith("ff-")]
+
+
+def keyed_aggregation(dev, sw, ops, core, queries, smi_line):
+    """(a): the chunked search once more (q=1000, the 10-2k regime, all
+    2^19 subjects, chunks of 4096), each chunk's (length bucket, score)
+    as one int32 (2, 4096) tensor on the card, reduced per bucket by
+    ``reduce_by_key(bucket, "max")`` and ``(bucket, "count")`` on threads
+    and on procs (2 left, 2 right; the ring moves each chunk to the host)
+    and held, exactly, against ``scatter_reduce`` and ``bincount`` on the
+    card.  Returns the SW launches of the path."""
+    t_phase = time.perf_counter()
+    A = ops.BLOSUM50.shape[0]
+    go = REGIMES[0][0]
+    flat, lens, offs = make_big_db(BIG_DB_SIZE, BIG_DB_SEED)
+    order = np.argsort(-lens, kind="stable")
+    chunks = pack_chunks(sw, lambda i: flat[offs[i]:offs[i] + lens[i]], order,
+                         CHUNK, A, dev)
+    buckets = torch.as_tensor(lens[order] // BUCKET, dtype=torch.int32,
+                              device=dev).split(CHUNK)
+    prof, q_len = ops.build_profile(queries[KEYED_Q], ops.BLOSUM50.to(dev))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t_phase
+
+    reset_counts()                                # --- counted window ---
+    farm = core.TaskFarm(2, preserve_order=True)
+    farm.add_stream(chunks)
+    farm.add_worker(core.FnNode(lambda ch: sw.sw_batch(
+        prof, ch[0], ch[1], gap_open=go, gap_extend=GAP_EXTEND, q_len=q_len)))
+    t0 = time.perf_counter()
+    scores = farm.run_and_wait()
+    stream = [torch.stack([b, s.to(torch.int32)])
+              for b, s in zip(buckets, scores)]
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    runs = {}
+    for fold in ("max", "count"):
+        skel = core.reduce_by_key(row_key, fold, nleft=2, nright=2,
+                                  left=explode_scores)
+        t0 = time.perf_counter()
+        out = core.lower(skel, "threads")(stream)
+        runs[("threads", fold)] = dict(out=out, wall=time.perf_counter() - t0,
+                                       ready=0.0)
+        t0 = time.perf_counter()
+        acc = core.ProcAccelerator(skel, capacity=KEYED_CAPACITY,
+                                   slot_size=KEYED_SLOT)
+        ready = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for chunk in stream:
+            acc.offload(chunk)
+        out = acc.wait(KEYED_TIMEOUT)
+        runs[("procs", fold)] = dict(out=out, wall=time.perf_counter() - t0,
+                                     ready=ready)
+    counts = read_counts()                        # --- end of window ---
+    check(counts == {"sw": len(chunks), "fa": 0, "ssd": 0},
+          f"keyed path launched {counts}, expected sw {len(chunks)}")
+
+    allv = torch.cat(stream, dim=1)
+    score_f = torch.cat(scores)
+    check(bool(torch.isfinite(score_f).all()) and float(score_f.min()) >= 0
+          and torch.equal(score_f, allv[1].float()),
+          "keyed path: scores not finite, negative or not integer-valued")
+    # the first subjects of the first and last chunks against sw_plain
+    pick = np.concatenate([order[:32], order[-32:]])
+    sample, sample_lens = sw.pack_subjects(
+        [flat[offs[i]:offs[i] + lens[i]] for i in pick], A, dev)
+    live = torch.arange(sample.shape[1], device=dev) < sample_lens[:, None]
+    want_s = sw.sw_plain(prof, torch.where(live, sample, A), go, GAP_EXTEND,
+                         q_len)
+    check(want_s.tolist() == torch.cat([score_f[:32], score_f[-32:]]).tolist(),
+          "keyed path: scores differ from sw_plain on the 64-subject sample")
+    b_all = allv[0].long()
+    nb = int(b_all.max()) + 1
+    count = torch.bincount(b_all, minlength=nb)
+    amax = torch.full((nb,), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, b_all, allv[1], "amax", include_self=False)
+    present = (count > 0).nonzero().flatten().tolist()
+    want = {"max": dict(zip(present, amax[present].tolist())),
+            "count": dict(zip(present, count[present].tolist()))}
+    rows = allv.shape[1]
+    ncpu = os.cpu_count()
+    print(f"keyed aggregation: {len(chunks)} chunks of (2, {CHUNK}) int32 on "
+          f"the card (length // {BUCKET}, score) from the chunked search "
+          f"q={KEYED_Q} {REGIMES[0][1]} ({search_s:.4f} s, {counts['sw']} "
+          f"launches), {rows} rows, {len(present)} buckets; set-up "
+          f"{setup:.1f} s; procs rings slot_size={KEYED_SLOT} "
+          f"capacity={KEYED_CAPACITY}, batch off; host CPUs {ncpu}; card "
+          f"{smi_line}", flush=True)
+    for (backend, fold), r in runs.items():
+        got = {k: (v[1] if fold == "max" else v) for k, v in r["out"]}
+        check(len(got) == len(r["out"]) and got == want[fold],
+              f"keyed {fold} on {backend} differs from "
+              f"{'scatter_reduce amax' if fold == 'max' else 'bincount'}")
+        print(f"keyed {fold} on {backend}: equal to "
+              f"{'scatter_reduce(amax)' if fold == 'max' else 'bincount'} "
+              f"over {len(got)} buckets; wall {r['wall']:.4f} s, "
+              f"{rows / r['wall']:.1f} rows/s"
+              + (f" (vertices ready in {r['ready']:.2f} s before it)"
+                 if backend == "procs" else ""), flush=True)
+    print(f"keyed aggregation phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts["sw"]
+
+
+def ooc_aggregation(smi_line):
+    """(b): the reference's largest out-of-core tier through ``shard_reduce``
+    on procs and on threads, each in a fresh interpreter; both equal to a
+    plain dict fold, both spilled."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cfg = OOC
+    print(f"out-of-core tier (benchmarks/ooc_aggregation.py 'large', nothing "
+          f"cut): {cfg['nrows']} rows, {cfg['hot']} hot + {cfg['cold']} cold "
+          f"keys, budget {cfg['budget']} B x {cfg['nright']} partitions, "
+          f"combine_limit {cfg['combine_limit']} B, {cfg['nleft']} x "
+          f"{cfg['nright']} vertices, batch_rows {cfg['batch_rows']}; host "
+          f"CPUs {os.cpu_count()}; card {smi_line}", flush=True)
+    for backend in ("procs", "threads"):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.ooc_child({backend!r})"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=OOC_TIMEOUT + 120)
+        check(proc.returncode == 0,
+              f"out-of-core child ({backend}) failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(r["equal"], f"out-of-core {backend}: result differs from the "
+                          f"plain dict fold")
+        check(r["spills"] > 0, f"out-of-core {backend}: no spill")
+        def kb(v):
+            return f"{v} KB" if v else "not measured (no /proc/<pid>/statm)"
+
+        peak = r["vertex_kb"] if backend == "procs" else r["self_kb"]
+        where = (f"vertex processes ready {r['ready_s']:.2f} s into it; "
+                 f"peak RSS of a vertex process {kb(peak)}"
+                 if backend == "procs" else f"peak RSS of the process {kb(peak)}")
+        if peak and r["import_kb"]:
+            where += f", {peak - r['import_kb']} KB over the import's"
+        print(f"out-of-core on {backend}: equal to the plain dict fold "
+              f"({r['keys']} keys; the fold took {r['plain_s']:.3f} s); wall "
+              f"{r['wall_s']:.3f} s, {r['nrows'] / r['wall_s']:.1f} rows/s, "
+              f"spills {r['spills']} ({r['spill_bytes']} B), backpressure "
+              f"stalls {r['stalls']}; {where} (sampled every 10 ms; the "
+              f"process held {kb(r['import_kb'])} after importing "
+              f"chip_smoke.py and repro_torch.core)", flush=True)
+
+
+def phase_keyed(dev, sw, ops, core, queries, smi_line):
+    """Phase 11: the host runtime's keyed shuffle and out-of-core folds,
+    threads and procs, driven by the card's SW scores and by the
+    reference's largest out-of-core tier.  Every vertex host is retired
+    and every segment unlinked before it returns (this script leaves
+    through ``os._exit``, which skips the pool's ``atexit`` hook)."""
+    t_phase = time.perf_counter()
+    try:
+        launches = keyed_aggregation(dev, sw, ops, core, queries, smi_line)
+    finally:
+        core.pool_shutdown()
+    ooc_aggregation(smi_line)
+    left = _shm_segments()
+    check(not left, f"shared-memory segments left behind: {left}")
+    hosts = _vertex_hosts()
+    check(not hosts, f"vertex hosts still running: {hosts}")
+    print(f"phase 11: no segment left in /dev/shm, no vertex host running; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of a checkout (src/repro_torch missing)")
@@ -2386,7 +2717,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda")
@@ -2410,13 +2742,15 @@ def main():
     model_rows = phase_model_timing(dev, fa, ssd)
     families = phase_families(dev)
     training = phase_training(dev, fa, ssd)
+    keyed_launches = phase_keyed(dev, sw, ops, core, queries, smi_line)
 
     main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
         "name": "sw", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": launches + chunked_launches,
+        "launches": launches + chunked_launches + keyed_launches,
         "launches_by_path": {"one-subject farm": launches,
-                             "chunked search": chunked_launches},
+                             "chunked search": chunked_launches,
+                             "keyed aggregation": keyed_launches},
         "max_abs_err": worst, "exact_cases": cases,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

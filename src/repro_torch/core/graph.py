@@ -12,8 +12,8 @@ This module is the **threads backend** of
 ``Farm`` / ``Feedback`` / ``Source`` / ``Stage`` vocabulary lives in
 :mod:`repro_torch.core.skeleton` (pure data), and :func:`build` below wires
 an IR tree into a :class:`Graph` of vertices and rings.  It is the port's
-copy of ``repro.core.graph``; the ``AllToAll`` lowering belongs to a later
-slice of the port and raises :class:`LoweringError`.  The names ``Net``,
+copy of ``repro.core.graph``; the ``AllToAll`` lowering lives in
+:mod:`repro_torch.core.a2a`.  The names ``Net``,
 ``Pipeline``, ``Farm``, ``compose``, ``ff_node``, ... are importable from
 here too, as in the reference.
 
@@ -71,8 +71,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Type
 from .obs import qualname as _qualname
 from .sched import Scheduler, make_scheduler
 from .skeleton import (GO_ON, AllToAll, EmitMany, Farm, FarmStats, Feedback,
-                       FnNode, KeyBatch, LoweringError, Pipeline, Skeleton,
-                       Source, Stage,
+                       FnNode, KeyBatch, Pipeline, Skeleton, Source, Stage,
                        _FarmEmitMany, _SeqNode, as_skeleton, compose, ff_node)
 from .spsc import EOS, SPSCQueue
 
@@ -935,9 +934,9 @@ def build(skel: Skeleton, g: Graph, in_ring: Optional[Any],
     This is what makes skeletons close under composition: a ``Farm`` is a
     vertex of the enclosing ``Pipeline``, and vice versa."""
     if isinstance(skel, AllToAll):
-        raise LoweringError(
-            "AllToAll is the all-to-all slice of the port, not yet ported "
-            "to repro_torch")
+        from .a2a import build_thread_a2a  # lazy: a2a imports this module
+        return build_thread_a2a(skel, g, ring_list(in_ring), terminal,
+                                path=path)
 
     if isinstance(skel, Source):
         assert in_ring is None, "Source cannot have an upstream edge"

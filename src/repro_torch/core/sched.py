@@ -53,6 +53,7 @@ from .spsc import SPSCQueue
 
 __all__ = [
     "Scheduler", "RoundRobin", "OnDemand", "WorkStealing", "CostModel",
+    "KeyAffinity", "BudgetBackpressure",
     "SCHEDULERS", "make_scheduler", "calibrate_handoff_us",
     "clear_handoff_cache", "spread_cpus",
 ]
@@ -85,7 +86,7 @@ class Scheduler:
     * ``worker_channel(i, channel)`` — at graph-build time, once per
       worker: return an SPSC side-channel (worker → arbiter) or ``None``;
     * ``bind(outs, stats)`` — at arbiter start, with the worker rings and
-      the farm's :class:`~repro.core.skeleton.FarmStats`;
+      the farm's :class:`~repro_torch.core.skeleton.FarmStats`;
     * ``place(tok, emit)`` — one token: default is ``emit(pick(), tok)``
       (a blocking push that keeps the wrap-around ring drained);
     * ``pump()`` — called every arbiter iteration: flush any policy-held
@@ -317,16 +318,126 @@ class CostModel(Scheduler):
                                   (w - start) % n))
 
 
+class KeyAffinity(Scheduler):
+    """Key-affinity placement — the all-to-all routing rule as a farm
+    policy: tasks whose keys are equal always land on the *same* worker
+    (``stable_hash(by(payload)) % nworkers``, the deterministic hash every
+    keyed shuffle uses on its left→right edge matrix).  This is the policy
+    surface a plain ``Farm`` needs to host per-key state — stateful fold
+    workers, per-key caches, sticky sessions — without building a full
+    shuffle network.
+
+    ``by`` extracts the key from the payload (default: the payload itself)
+    and must be picklable for the procs backend (module-level function).
+    Placement is payload-dependent: the policy implements ``route`` (so
+    ``Stage`` fan-out and the all-to-all scatter can use it — it never
+    holds tokens) and ``place`` on top of it for the farm arbiters; only
+    the caller-side ``ProcAccelerator`` fast path falls back to the full
+    arbiter graph.  ``pick`` (used only by straggler re-issue duplicates)
+    degrades to shortest-ring — a duplicate may run off-key, which is
+    safe: affinity is a placement preference, and the merge arbiter
+    dedups by tag regardless of who serviced it.  Speculation plus
+    *stateful* per-key workers is the caller's contract to avoid, exactly
+    as with ``WorkStealing``."""
+
+    name = "keyaffinity"
+
+    def __init__(self, by: Optional[Callable[[Any], Any]] = None) -> None:
+        super().__init__()
+        self.by = by
+        # bound once, off the per-item path (import is safe here: sched is
+        # fully loaded before any policy can be instantiated)
+        from .a2a import stable_hash
+        self._hash = stable_hash
+
+    def fresh(self) -> "KeyAffinity":
+        return KeyAffinity(self.by)
+
+    def pick(self) -> int:  # duplicates from straggler re-issue only
+        return min(range(len(self.outs)), key=lambda w: len(self.outs[w]))
+
+    def route(self, payload: Any) -> int:
+        key = payload if self.by is None else self.by(payload)
+        return self._hash(key) % len(self.outs)
+
+    def place(self, tok: Any, emit: Callable[[int, Any], None]) -> None:
+        # tok is graph.Token (threads), a (tag, issued, payload) tuple
+        # (procs wire format), or a raw payload (caller-side arbitration)
+        payload = tok.payload if hasattr(tok, "payload") else (
+            tok[2] if isinstance(tok, tuple) and len(tok) == 3 else tok)
+        emit(self.route(payload), tok)
+
+
+class BudgetBackpressure(RoundRobin):
+    """Bounded-memory intake throttle for keyed reductions — the scatter
+    policy a budgeted ``reduce_by_key`` installs by default.
+
+    The policy holds the reduction's :class:`~repro_torch.core.oocore.
+    MemoryBudget`; before each placement it checks whether the hot fold
+    state across all partitions is over the *global* budget
+    (``limit × nparts``) and, if so, counts one backpressure stall and
+    briefly stops taking input (bounded wait, so a wedged reduction can
+    never deadlock the scatter — the partitions relieve pressure by
+    draining their inbound rings, spilling as they fold, which drops
+    their held bytes below the line).  While the scatter stalls, its
+    inbound ring fills and ring-capacity backpressure propagates
+    upstream — the usual FastFlow mechanism, now driven by a byte budget
+    instead of slot counts.
+
+    The wait has hysteresis: partitions spill *on ingest*, so once their
+    rings are drained the held bytes cannot fall further without new
+    input — a stall that times out still over the line would then repeat
+    for every placement while the partitions hover in the over-high-water
+    band (each costing the full bounded wait: a ~1000× slowdown, not
+    backpressure).  After a timed-out stall the policy places freely and
+    re-arms only when the aggregate first dips back below the line, so
+    one stall is paid per spill cycle instead of one per item.
+
+    Works identically on both host backends: on threads the budget's
+    counters are plain shared-object state; on procs the scatter process
+    reads the same :class:`~repro_torch.core.shm.ShmCounters` board the
+    partition processes write (single writer per counter, any reader).
+    Placement itself is round-robin over the left row.  Constructed
+    bare (registry name ``"budget"``) it has no budget and degrades to
+    plain round-robin."""
+
+    name = "budget"
+
+    def __init__(self, budget: Any = None, *,
+                 max_stall_s: float = 0.02) -> None:
+        super().__init__()
+        self.budget = budget
+        self.max_stall_s = max_stall_s
+        self._exhausted = False  # last stall timed out still over the line
+
+    def fresh(self) -> "BudgetBackpressure":
+        # the budget is configuration, not run state: clones keep it (its
+        # counters are cumulative across runs by design)
+        return BudgetBackpressure(self.budget, max_stall_s=self.max_stall_s)
+
+    def pick(self) -> int:
+        b = self.budget
+        if b is not None:
+            over = b.over_total()
+            if not over:
+                self._exhausted = False  # below the line again: re-arm
+            elif not self._exhausted:
+                b.stalled()
+                deadline = time.monotonic() + self.max_stall_s
+                while b.over_total() and time.monotonic() < deadline:
+                    time.sleep(0.0005)
+                self._exhausted = b.over_total()
+        return super().pick()
+
+
 SCHEDULERS: Dict[str, Type[Scheduler]] = {
     "rr": RoundRobin,
     "ondemand": OnDemand,
     "worksteal": WorkStealing,
     "costmodel": CostModel,
+    "keyaffinity": KeyAffinity,
+    "budget": BudgetBackpressure,
 }
-
-#: policies of the reference that belong to later slices of this port
-_LATER = {"keyaffinity": "KeyAffinity (the all-to-all slice)",
-          "budget": "BudgetBackpressure (the out-of-core slice)"}
 
 
 def make_scheduler(spec: Any) -> Scheduler:
@@ -339,10 +450,6 @@ def make_scheduler(spec: Any) -> Scheduler:
     if isinstance(spec, type) and issubclass(spec, Scheduler):
         return spec()
     if isinstance(spec, str):
-        if spec in _LATER:
-            raise ValueError(
-                f"scheduling policy {spec!r} is {_LATER[spec]}, not yet "
-                f"ported to repro_torch")
         try:
             return SCHEDULERS[spec]()
         except KeyError:

@@ -1,4 +1,4 @@
-"""Backend-neutral skeleton IR — the vocabulary, and its threads runtime.
+"""Backend-neutral skeleton IR — the vocabulary, and its host runtimes.
 
 FastFlow's central claim (paper Sec. 2, tutorial TR-12-04) is that one small
 skeleton vocabulary — pipeline, farm, feedback — covers every streaming
@@ -15,12 +15,16 @@ Execution is a separate step, :func:`lower`:
     runtime (see :func:`repro_torch.core.graph.build`).  Ordered-stream
     semantics come from the tagged-token collector.
 
-This is the port's copy of the reference runtime (``repro.core.skeleton``),
-cut to what the Smith-Waterman search needs.  The reference's other
-backends — ``"mesh"`` (one device program per skeleton) and ``"procs"``
-(spawned vertex processes) — and its ``tune=``/``monitor=``/``metrics=``
-options belong to later slices of the port: :func:`lower` and
-:class:`ThreadProgram` raise :class:`LoweringError` naming them.
+``lower(skel, backend="procs")``
+    produces a :class:`~repro_torch.core.procgraph.ProcProgram`: every
+    vertex a spawned process, every edge a shared-memory SPSC ring, with
+    the same ordered-output contract.
+
+This is the port's copy of the reference runtime (``repro.core.skeleton``).
+The reference's device backend ``"mesh"`` (one device program per
+skeleton) and its ``tune=``/``monitor=``/``metrics=`` options belong to
+later slices of the port: :func:`lower` and the programs raise
+:class:`LoweringError` naming them.
 
 The programming-model primitives (``ff_node``, ``FnNode``, ``GO_ON``) live
 here too: they are the *node* vocabulary every backend shares.
@@ -973,8 +977,7 @@ class LoweringError(ValueError):
 BACKENDS: Dict[str, Type] = {}
 
 #: backends of the reference that belong to later slices of this port
-_LATER_BACKENDS = {"mesh": "the device-backend slice",
-                   "procs": "the process-backend slice"}
+_LATER_BACKENDS = {"mesh": "the device-backend slice"}
 
 
 def lower(skel: Any, backend: str = "threads", **opts: Any):
@@ -985,7 +988,7 @@ def lower(skel: Any, backend: str = "threads", **opts: Any):
     Backends are a registry (``BACKENDS``) so scheduling policies and
     fused runtimes can plug in without touching the IR.
 
-    The reference's ``"mesh"`` and ``"procs"`` backends and its
+    The reference's ``"mesh"`` backend and its
     ``tune=``/``profile=`` two-phase compile belong to later slices of
     the port and raise :class:`LoweringError` here.
     """

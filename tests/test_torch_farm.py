@@ -15,7 +15,7 @@ from hypothesis import given, settings, strategies as st
 import repro.core as jcore
 from repro.kernels import ops as jops
 from repro_torch import convert
-from repro_torch.core import (GO_ON, AllToAll, Farm, Feedback, FnNode,
+from repro_torch.core import (GO_ON, Farm, Feedback, FnNode,
                               LockQueue, LoweringError, Pipeline, SPSCQueue,
                               Stage, TaskFarm, compose, ff_node, lower,
                               make_scheduler)
@@ -186,7 +186,7 @@ def test_dead_worker_full_ring_raises_not_hangs():
 
 
 # -- what this slice leaves to later slices ----------------------------------
-@pytest.mark.parametrize("backend", ["mesh", "procs"])
+@pytest.mark.parametrize("backend", ["mesh"])
 def test_later_backends_raise_lowering_error(backend):
     with pytest.raises(LoweringError, match="slice"):
         lower(Farm(_f, 2), backend)
@@ -197,14 +197,6 @@ def test_later_backends_raise_lowering_error(backend):
 def test_later_options_raise_lowering_error(opts):
     with pytest.raises(LoweringError, match="slice"):
         lower(Farm(_f, 2), "threads", **opts)
-
-
-def test_later_pieces_raise():
-    with pytest.raises(LoweringError, match="all-to-all"):
-        lower(AllToAll(_f, _g), "threads")(range(4))
-    for name in ("keyaffinity", "budget"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            make_scheduler(name)
 
 
 # -- the slice end to end (tests/test_system.py) -----------------------------

@@ -7,8 +7,9 @@ TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernels
 their plain versions, on their edge cases; training steps of every family
 through the kernels, forward and backward, against the CPU;
 the Zamba2 smoke prefill launching both; the MoE grouped dispatch against
-its dense oracle, and the smoke prefill of the moe, vlm and audio families
-through the FA kernel.  They carry the ``gpu`` marker
+its dense oracle, the smoke prefill of the moe, vlm and audio families
+through the FA kernel, and CUDA tensors crossing a procs farm on the
+host (the shared-memory ring's tensor edge).  They carry the ``gpu`` marker
 and skip where there is no card.  This file imports neither jax nor the
 reference package, so it runs on a machine that has only the port's
 dependencies:
@@ -756,3 +757,29 @@ def test_train_step_on_card_equals_cpu(dev, arch, n_fa):
         assert torch.isfinite(m[key]).all()
         assert abs(float(m[key]) - float(m_cpu[key])) <= 1e-4 * max(
             1.0, abs(float(m_cpu[key]))), key
+
+
+def test_cuda_tensors_cross_a_procs_farm_on_the_host(dev):
+    """The procs backend's tensor edge: CUDA tensors offloaded to a process
+    farm reach the workers, and come back, as CPU tensors equal to
+    ``.cpu()`` — inside the farm's tokens (caller-side arbitration) and
+    bare on a stage edge (the graph path), bf16 included."""
+    from _torch_procs_nodes import describe
+    from repro_torch.core import Farm, ProcAccelerator, Stage, pool_shutdown
+    xs = [torch.arange(12, dtype=torch.float32, device=dev).reshape(3, 4),
+          torch.tensor([5, -6, 7], dtype=torch.int32, device=dev),
+          torch.tensor([True, False], device=dev),
+          torch.linspace(-2, 2, 9, device=dev).to(torch.bfloat16)]
+    try:
+        for skel in (Farm(describe, 2, ordered=True), Stage(describe)):
+            acc = ProcAccelerator(skel)
+            for x in xs:
+                acc.offload(x)
+            out = acc.wait(120)
+            assert len(out) == len(xs)
+            for (kind, dtype, shape, device, t), x in zip(out, xs):
+                assert (kind, dtype, shape, device) == \
+                    ("Tensor", str(x.dtype), tuple(x.shape), "cpu")
+                assert t.device.type == "cpu" and torch.equal(t, x.cpu())
+    finally:
+        pool_shutdown()

@@ -14,7 +14,10 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
 PORT_MODULES = [
     "repro_torch", "repro_torch.core", "repro_torch.core.allocator",
-    "repro_torch.core.mdf", "repro_torch.models.moe",
+    "repro_torch.core.mdf", "repro_torch.core.shm",
+    "repro_torch.core.procgraph", "repro_torch.core.a2a",
+    "repro_torch.core.stream_ops", "repro_torch.core.oocore",
+    "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ssd_scan", "repro_torch.convert",
@@ -93,12 +96,45 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
 
 @pytest.mark.parametrize("name", ["spsc", "lockq", "obs", "sched",
                                   "skeleton", "graph", "farm", "allocator",
-                                  "mdf"])
+                                  "mdf", "procgraph", "a2a", "stream_ops",
+                                  "oocore"])
 def test_runtime_copies_stay_plain_python(name):
     """The runtime copies import neither torch nor numpy: like the
-    reference's, they are plain Python."""
+    reference's, they are plain Python.  (``shm`` imports either only
+    inside the decoder of a frame that carries it, checked below.)"""
     mods = {_top(m) for _, m in _imports(PORT / "core" / f"{name}.py")}
     assert not mods & {"torch", "numpy", *FORBIDDEN}, mods
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core", "repro_torch.core.procgraph", "repro_torch.core.shm",
+    "repro_torch.core.a2a", "repro_torch.core.oocore",
+    "repro_torch.core.stream_ops"])
+def test_runtime_import_leaves_torch_and_numpy_unloaded(module):
+    """What a spawned vertex of the procs backend imports loads no torch
+    and no numpy, module by module in a fresh interpreter (the
+    counterpart of the reference's procs pin in
+    ``tests/test_lazy_import.py``)."""
+    code = ("import sys\n"
+            f"import {module}\n"
+            "bad = sorted(m for m in ('torch', 'numpy') if m in sys.modules)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_shm_reaches_torch_and_numpy_only_lazily():
+    """``shm`` names torch and numpy only through ``sys.modules`` on the
+    producer side and inside the decoder functions."""
+    tree = ast.parse((PORT / "core" / "shm.py").read_text())
+    top = {_top(a.name) for n in tree.body if isinstance(n, ast.Import)
+           for a in n.names}
+    top |= {_top(n.module or "") for n in tree.body
+            if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert not top & {"torch", "numpy", *FORBIDDEN}, top
 
 
 def test_every_port_module_is_covered():
