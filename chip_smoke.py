@@ -33,7 +33,11 @@ kernel launch counts set to 0 just before it and read just after:
   search's scores, one (2, 4096) int32 tensor per chunk on the card,
   reduced per length bucket by ``reduce_by_key`` (max and count); then
   the reference's largest out-of-core tier (a million rows, a million
-  cold keys) through ``shard_reduce`` under a 1 MiB budget per partition.
+  cold keys) through ``shard_reduce`` under a 1 MiB budget per partition;
+* the self-tuning compile and the live monitor around the chunked search,
+  a service level on the serving run, and the device backend
+  (``lower(.., "mesh")``, one program per skeleton on the card) over the
+  search's rows and subjects.
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -96,7 +100,19 @@ Phases, each on lines of its own; any failed check exits non-zero:
       each in a fresh interpreter, equal to a plain dict fold, with
       spills; wall, rows/s, spills, stalls, peak RSS and the host's CPU
       count; no vertex host or ``/dev/shm`` segment left;
-  12. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  12. the self-tuning compile, the live monitor and the device backend:
+      (a) the chunked search of phase 4 through ``lower(Farm(score_chunk,
+      2), "threads", tune=True, tune_pilot=16, monitor=, metrics=True)``,
+      called twice, equal to phase 4's scores bit for bit, with the
+      profile, the retuned IR, ``analyze`` of the timeline and the run
+      report; a monitored keyed max of phase 11's rows on procs; (b) phase
+      7's serving carries ``slo=SLOMonitor(...)`` (its alerts print
+      there); (c) ``lower(.., "mesh")`` on the card: Farm∘Farm at 2000
+      items and 2^20 and a Feedback loop equal to threads, ``reduce_by_key``
+      (max, count) of phase 11's 524,288 rows equal to
+      ``scatter_reduce``/``bincount``, a device farm of SW scores over
+      phase 4's 4096 subjects equal to its scores, and the tuned mesh plan;
+  13. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -588,7 +604,8 @@ def phase_chunked(dev, sw, ops, core, runs, db, queries):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del big, small, sample
     torch.cuda.empty_cache()
-    return expected
+    main = results[(KEYED_Q, REGIMES[0][1], CHUNK)]
+    return expected, {"scores": main["scores"], "wall": main["wall"]}
 
 
 def phase_timing(dev, sw, ops):
@@ -811,19 +828,20 @@ def _events_ms(fn):
     return out, start.elapsed_time(stop)
 
 
-def serve_requests(cfg, params, dev, rng):
+def serve_requests(cfg, params, dev, rng, slo=None):
     """``SERVE_REQS`` requests of 16-64 prompt tokens through the
     ``ServeEngine`` on the threads farm: tags and request ids in order,
     ``SERVE_NEW`` tokens each, request 0 alone gives its batched tokens,
     and no kernel launched (serving runs ``decode_step`` only, as in the
-    reference).  Returns (engine, wall seconds)."""
+    reference).  ``slo=`` goes to the engine (phase 12 (b)).  Returns
+    (engine, wall seconds)."""
     from repro_torch.launch.serve import Request, ServeEngine
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
                                               int(rng.integers(16, 65)))]
                for _ in range(SERVE_REQS)]
     before = read_counts()
     eng = ServeEngine(cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
-                      params=params, device=dev)
+                      params=params, device=dev, slo=slo)
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
     t0 = time.perf_counter()
@@ -1018,8 +1036,12 @@ def phase_model_path(dev):
               "time (not measured)", flush=True)
     reset_counts()
 
-    # serving: 8 requests through the ServeEngine, bf16, full width
-    eng, serve_wall = serve_requests(cfg, params, dev, rng)
+    # serving: 8 requests through the ServeEngine, bf16, full width, held
+    # to a service level (phase 12 (b))
+    from repro_torch.core.monitor import SLOMonitor
+    slo = SLOMonitor(**SLO)
+    eng, serve_wall = serve_requests(cfg, params, dev, rng, slo=slo)
+    slo_readings(eng, slo)
     # the same decode step at the engine's batch, outside the farm
     cache = init_cache(cfg, SERVE_BATCH, SERVE_LEN, device=dev)
     one = {"tokens": torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device=dev)}
@@ -2542,7 +2564,8 @@ def keyed_aggregation(dev, sw, ops, core, queries, smi_line):
     ``reduce_by_key(bucket, "max")`` and ``(bucket, "count")`` on threads
     and on procs (2 left, 2 right; the ring moves each chunk to the host)
     and held, exactly, against ``scatter_reduce`` and ``bincount`` on the
-    card.  Returns the SW launches of the path."""
+    card.  Returns the SW launches of the path and what phase 12 reuses
+    (the chunks, their order, the profile and the scores' rows)."""
     t_phase = time.perf_counter()
     A = ops.BLOSUM50.shape[0]
     go = REGIMES[0][0]
@@ -2633,7 +2656,9 @@ def keyed_aggregation(dev, sw, ops, core, queries, smi_line):
                  if backend == "procs" else ""), flush=True)
     print(f"keyed aggregation phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return counts["sw"]
+    ctx = dict(chunks=chunks, order=order, prof=prof, q_len=q_len, go=go,
+               stream=stream, rows=allv, want=want)
+    return counts["sw"], ctx
 
 
 def ooc_aggregation(smi_line):
@@ -2689,7 +2714,8 @@ def phase_keyed(dev, sw, ops, core, queries, smi_line):
     through ``os._exit``, which skips the pool's ``atexit`` hook)."""
     t_phase = time.perf_counter()
     try:
-        launches = keyed_aggregation(dev, sw, ops, core, queries, smi_line)
+        launches, ctx = keyed_aggregation(dev, sw, ops, core, queries,
+                                          smi_line)
     finally:
         core.pool_shutdown()
     ooc_aggregation(smi_line)
@@ -2699,7 +2725,338 @@ def phase_keyed(dev, sw, ops, core, queries, smi_line):
     check(not hosts, f"vertex hosts still running: {hosts}")
     print(f"phase 11: no segment left in /dev/shm, no vertex host running; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, ctx
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the self-tuning compile, the live monitor and the device backend
+# ---------------------------------------------------------------------------
+TUNE_PILOT = 16               # chunks the tuned search profiles first
+MONITOR_INTERVAL_S = 0.01
+# Zamba2 serving's service level: the worst reading of phase 7's serving on
+# an NVIDIA H100 80GB HBM3 at 700 W before this phase was added (p99
+# 15474.9 ms, 8.27 tokens/s); an alert is a reading, not a failure
+SLO = dict(p99_us=15_474_900.0, min_goodput=8.27)
+MESH_SIZES = [2000, 1 << 20]  # benchmarks/skeleton_parity.py's items, then 2^20
+MESH_STEADY = 3               # steady calls timed after the first
+FEEDBACK_ITEMS = 20_000
+MESH_KEYS = 63                # length buckets: 2000 // 32 + 1
+KEY_BITS = 64                 # a row travels as score * 64 + bucket
+
+
+def times3_plus1(x):
+    return x * 3 + 1
+
+
+def minus7(x):
+    return x - 7
+
+
+def double_plus1(x):
+    return x * 2 + 1
+
+
+def below64(x):
+    return x < 64
+
+
+def bucket_of(v):
+    return v % KEY_BITS
+
+
+def slo_readings(eng, slo):
+    """Phase 12 (b): the serving run's SLO readings (phase 7's engine)."""
+    reg = eng.metrics
+    lane = eng.last_trace.lane("slo-monitor")
+    instants = [(e[0], e[3]) for e in lane.events] if lane else []
+    alerts = reg.counter("slo.alerts").value
+    check(alerts == len(slo.events),
+          f"slo.alerts {alerts} != {len(slo.events)} alerts")
+    check(len(instants) == len(slo.events) and all(
+        k == "alert" and a == ev for (k, a), ev in zip(instants, slo.events)),
+        f"slo-monitor lane {instants} does not carry the alerts {slo.events}")
+    lat = eng._latency
+    print(f"phase 12 (b) serving slo: p99 <= {slo.p99_us / 1e3:.1f} ms and "
+          f">= {slo.min_goodput} tokens/s (the earlier worst reading); "
+          f"read p99 {lat.p99 / 1e3:.1f} ms, "
+          f"{eng.last_report.gauges['serve.tokens_per_s']:.2f} tokens/s; "
+          f"{len(slo.events)} alert(s): {json.dumps(slo.events)}; "
+          f"slo.alerts {alerts}; slo-monitor lane instants "
+          f"{json.dumps(instants)}", flush=True)
+
+
+def _ir_text(skel):
+    """A tuned IR as one line: kinds, widths, grains, capacities, batches."""
+    kind = type(skel).__name__
+    if kind == "Pipeline":
+        return "Pipeline(" + ", ".join(_ir_text(s) for s in skel.stages) + ")"
+    node = getattr(skel, "node", None) or (skel.worker_nodes[0]
+                                           if kind == "Farm" else None)
+    batch = getattr(node, "batch", None)
+    return (f"{kind}(" + (f"nworkers={skel.nworkers}, " if kind == "Farm"
+                          else "")
+            + f"grain={skel.grain}, capacity={skel.capacity}"
+            + (f", rebatched by {batch}" if batch else "") + ")")
+
+
+def _monotone(frames, key, end):
+    """``key`` over one call's frames: monotone, ending at ``end``.
+    Returns (whether it holds, (first, last, frames sampled))."""
+    vals = [fr["counters"][key] for fr in frames if key in fr["counters"]]
+    ok = bool(vals) and vals[-1] == end and all(
+        a <= b for a, b in zip(vals, vals[1:]))
+    return ok, (vals[0], vals[-1], len(vals)) if vals else None
+
+
+def tuned_search(dev, sw, core, ctx, main, smi_line):
+    """(a) the chunked search of phase 4 through ``lower(.., "threads",
+    tune=True, monitor=, metrics=True)``: a pilot of 16 chunks on an
+    instrumented lowering, the retuned farm for the rest, then a second
+    call straight through the tuned program; then one monitored keyed
+    reduction of phase 11's rows on procs."""
+    from repro_torch.core.monitor import Monitor, analyze
+    prof, q_len, go = ctx["prof"], ctx["q_len"], ctx["go"]
+    chunks = ctx["chunks"]
+    order_dev = torch.as_tensor(ctx["order"], device=dev)
+
+    def score_chunk(ch):
+        return sw.sw_batch(prof, ch[0], ch[1], gap_open=go,
+                           gap_extend=GAP_EXTEND, q_len=q_len)
+
+    def search(prog):
+        t0 = time.perf_counter()
+        flat = torch.cat(prog(chunks))
+        scores = torch.empty(BIG_DB_SIZE, dtype=torch.float32, device=dev)
+        scores[order_dev] = flat
+        scores = scores.cpu()
+        return scores, time.perf_counter() - t0
+
+    mon = Monitor(interval_s=MONITOR_INTERVAL_S)
+    reset_counts()                                # --- counted window ---
+    tp = core.lower(core.Farm(score_chunk, 2, ordered=True), "threads",
+                    tune=True, tune_pilot=TUNE_PILOT, monitor=mon,
+                    metrics=True)
+    first, wall1 = search(tp)
+    n_first = len(mon.timeline)
+    second, wall2 = search(tp)
+    counts = read_counts()                        # --- end of window ---
+    n = len(chunks)
+    check(counts == {"sw": 2 * n, "fa": 0, "ssd": 0},
+          f"tuned search launched {counts}, expected sw {2 * n}")
+    check(torch.equal(first, main["scores"]) and torch.equal(second, first),
+          "tuned search: scores differ from phase 4's chunked search")
+    check(mon.errors == 0, f"monitor absorbed {mon.errors} sampling errors")
+    frames = mon.timeline.frames()
+    ok1, span1 = _monotone(frames[:n_first], "items_out", n - TUNE_PILOT)
+    ok2, span2 = _monotone(frames[n_first:], "items_out", n)
+    spans = [span1, span2]
+    check(ok1 and ok2, f"items_out not monotone to {n - TUNE_PILOT} (first "
+                       f"call, after the pilot) and {n} (second): {spans}")
+    p = tp.profile
+    print(f"phase 12 (a) tuned search: q={KEYED_Q} {REGIMES[0][1]}, {n} chunks "
+          f"of {CHUNK}; scores equal phase 4's bit for bit in both calls; "
+          f"{counts['sw']} SW launches; card {smi_line}", flush=True)
+    print(f"tuned profile: handoff_us={p.handoff_us:.3f} pilot_items="
+          f"{p.pilot_items}; " + "; ".join(
+              f"{sp.kind}@{sp.path} width {sp.width}: service_us="
+              f"{sp.service_us:.3f} (ewma {sp.service_ewma_us:.3f}) items "
+              f"{sp.items} queue_high_water={sp.queue_high_water}"
+              for sp in p.stages), flush=True)
+    before, after = _ir_text(tp.skeleton), _ir_text(tp.tuned_skeleton)
+    fused = type(tp.tuned_skeleton) is not type(tp.skeleton)
+    print(f"retuned IR: {before} -> {after}; fused: {fused}; rebatched: "
+          f"{'rebatched' in after}", flush=True)
+    print("analyze(monitor.timeline): "
+          + json.dumps(analyze(mon.timeline).to_json()), flush=True)
+    rep = tp.tuned.last_report
+    print(f"monitor: {len(mon.timeline)} frames, errors {mon.errors}, "
+          f"items_out per call {spans}; run report (second call): counters "
+          f"{json.dumps({k: v for k, v in rep.counters.items() if not k.startswith('mesh.')})} "
+          f"farms {json.dumps(rep.farms)} queues {json.dumps(rep.queues)} "
+          f"meta {json.dumps(rep.meta)}", flush=True)
+    print(f"tuned search wall: first call (pilot + tuned rest) {wall1:.4f} s, "
+          f"second call {wall2:.4f} s; phase 4's untuned farm {main['wall']:.4f}"
+          f" s", flush=True)
+
+    # one monitored keyed reduction of phase 11's rows on procs
+    stream = [c.cpu() for c in ctx["stream"]]
+    mon2 = Monitor(interval_s=MONITOR_INTERVAL_S)
+    skel = core.reduce_by_key(row_key, "max", nleft=2, nright=2,
+                              left=explode_scores)
+    t0 = time.perf_counter()
+    try:
+        prog = core.lower(skel, "procs", metrics=True, monitor=mon2,
+                          capacity=KEYED_CAPACITY, slot_size=KEYED_SLOT,
+                          timeout=KEYED_TIMEOUT)
+        out = prog(stream)
+    finally:
+        core.pool_shutdown()
+    wall = time.perf_counter() - t0
+    got = {k: v[1] for k, v in out}
+    check(len(got) == len(out) and got == ctx["want"]["max"],
+          "monitored keyed max on procs differs from scatter_reduce amax")
+    check(mon2.errors == 0, f"procs monitor absorbed {mon2.errors} errors")
+    left = _shm_segments()
+    check(not left, f"shared-memory segments left behind: {left}")
+    hosts = _vertex_hosts()
+    check(not hosts, f"vertex hosts still running: {hosts}")
+    last = mon2.timeline.frames()[-1]["counters"] if len(mon2.timeline) else {}
+    print(f"monitored keyed max on procs: equal to scatter_reduce(amax) over "
+          f"{len(got)} buckets; {wall:.2f} s with the vertices' spawn; "
+          f"{len(mon2.timeline)} frames, errors 0, last counters "
+          f"{json.dumps(last)}; report queues "
+          f"{json.dumps(prog.last_report.queues)} pool "
+          f"{json.dumps(prog.last_report.pool)}; no segment, no vertex host "
+          f"left", flush=True)
+    return counts["sw"]
+
+
+def _lane_spans(prog):
+    lane = prog.last_trace.lane("mesh-program")
+    return [(e[0], round((e[2] - e[1]) * 1e3, 3) if e[2] else None,
+             e[3] if len(e) > 3 else None) for e in lane.events]
+
+
+def device_backend(dev, sw, ops, core, ctx, runs, db, queries):
+    """(c) ``lower(.., "mesh")`` on the card: Farm∘Farm at 2000 items and
+    2^20, a Feedback loop, the keyed reduction of phase 11's rows, and a
+    device farm of SW scores.  Returns the SW launches of the farm."""
+    pipe = core.Pipeline(core.Farm(times3_plus1, 2, ordered=True),
+                         core.Farm(minus7, 2, ordered=True))
+    mesh = core.lower(pipe, "mesh", trace=True, metrics=True)
+    threads = core.lower(pipe, "threads")
+    for n in MESH_SIZES:
+        xs = list(range(n))
+        t0 = time.perf_counter()
+        want = threads(xs)
+        t_threads = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = mesh(xs)
+        t_first = time.perf_counter() - t0
+        check(got == want, f"mesh Farm∘Farm at {n} items differs from threads")
+        steady = []
+        for _ in range(MESH_STEADY):
+            t0 = time.perf_counter()
+            check(mesh(xs) == want, f"mesh Farm∘Farm at {n}: steady call differs")
+            steady.append(time.perf_counter() - t0)
+        calls = [e[2] - e[1] for e in mesh.last_trace.lane("mesh-program").events
+                 if e[0] == "call"][-MESH_STEADY:]
+        print(f"mesh Farm∘Farm (3x+1, x-7) at {n} items: equal to threads; "
+              f"threads {t_threads:.4f} s ({t_threads / n * 1e6:.3f} us/item), "
+              f"mesh first call {t_first:.4f} s, steady "
+              f"{min(steady):.4f}-{max(steady):.4f} s "
+              f"({min(steady) / n * 1e6:.3f} us/item), of which the device "
+              f"program (upload, stages, download) {min(calls) * 1e3:.3f}-"
+              f"{max(calls) * 1e3:.3f} ms and the rest host packing and "
+              f"unpacking", flush=True)
+    print(f"mesh program: mesh.compiles {mesh.metrics.counter('mesh.compiles').value}, "
+          f"mesh.calls {mesh.metrics.counter('mesh.calls').value}; lane "
+          f"mesh-program (kind, ms, args): {json.dumps(_lane_spans(mesh))}",
+          flush=True)
+
+    fb = core.Feedback(double_plus1, below64, max_trips=32)
+    xs = [i % 61 for i in range(FEEDBACK_ITEMS)]
+    t0 = time.perf_counter()
+    want = core.lower(fb, "threads")(xs)
+    t_threads = time.perf_counter() - t0
+    fbm = core.lower(fb, "mesh", metrics=True)
+    t0 = time.perf_counter()
+    got = fbm(xs)
+    t_mesh = time.perf_counter() - t0
+    check(got == want, "mesh Feedback differs from threads")
+    print(f"mesh Feedback (2x+1 while < 64, max_trips 32) at {FEEDBACK_ITEMS} "
+          f"items: equal to threads; threads {t_threads:.4f} s, mesh first "
+          f"call {t_mesh:.4f} s", flush=True)
+
+    # the keyed reduction of phase 11's rows, each as score * 64 + bucket
+    rows = ctx["rows"]
+    items = (rows[1].long() * KEY_BITS + rows[0].long()).tolist()
+    for fold in ("max", "count"):
+        prog = core.lower(core.reduce_by_key(bucket_of, fold, nkeys=MESH_KEYS),
+                          "mesh", trace=True, metrics=True)
+        walls = []
+        for _ in range(2):                        # first call, then steady
+            t0 = time.perf_counter()
+            out = prog(items)
+            walls.append(time.perf_counter() - t0)
+            got = {k: (v // KEY_BITS if fold == "max" else v) for k, v in out}
+            check(len(got) == len(out) and got == ctx["want"][fold],
+                  f"mesh keyed {fold} differs from "
+                  f"{'scatter_reduce amax' if fold == 'max' else 'bincount'}")
+        calls = [e[2] - e[1] for e in prog.last_trace.lane("mesh-program").events
+                 if e[0] == "call"]
+        print(f"mesh keyed {fold} over {len(items)} rows, nkeys {MESH_KEYS}: "
+              f"equal to {'scatter_reduce(amax)' if fold == 'max' else 'bincount'}"
+              f" over {len(got)} buckets in both calls; " + ", ".join(
+                  f"{what} call wall {w:.4f} s = device program {c:.4f} s + "
+                  f"packing and unpacking {w - c:.4f} s"
+                  for what, w, c in zip(("first", "second"), walls, calls))
+              + f"; mesh.compiles {prog.metrics.counter('mesh.compiles').value}",
+              flush=True)
+
+    # a device farm of SW scores: phase 4's database, one row a subject
+    A = ops.BLOSUM50.shape[0]
+    prof, q_len = ops.build_profile(queries[KEYED_Q], ops.BLOSUM50.to(dev))
+    go = REGIMES[0][0]
+    padded, _ = sw.pack_subjects(db, A, "cpu")
+
+    def score_rows(x):
+        y = torch.zeros_like(x)
+        y[:, 0] = sw.sw_batch(prof, x.contiguous(), gap_open=go,
+                              gap_extend=GAP_EXTEND, q_len=q_len).to(torch.int32)
+        return y
+
+    farm = core.lower(core.Farm(score_rows, 2, ordered=True), "mesh",
+                      trace=True, metrics=True)
+    rows_in = list(padded.numpy())
+    reset_counts()                                # --- counted window ---
+    t0 = time.perf_counter()
+    out = farm(rows_in)
+    wall = time.perf_counter() - t0
+    counts = read_counts()                        # --- end of window ---
+    check(counts == {"sw": 1, "fa": 0, "ssd": 0},
+          f"device SW farm launched {counts}, expected sw 1")
+    got = [float(r[0]) for r in out]
+    check(got == runs[(KEYED_Q, REGIMES[0][1])]["scores"],
+          "device SW farm differs from phase 4's scores")
+    call = next(e for e in farm.last_trace.lane("mesh-program").events
+                if e[0] == "call")
+    print(f"device SW farm: {len(db)} subjects padded to {padded.shape[1]} "
+          f"residues, one row each, q={KEYED_Q} {REGIMES[0][1]}: equal to "
+          f"phase 4's scores bit for bit; {counts['sw']} launch; wall "
+          f"{wall:.4f} s, device program {call[2] - call[1]:.4f} s", flush=True)
+
+    tp = core.lower(pipe, "mesh", tune=True, tune_pilot=256)
+    xs = list(range(MESH_SIZES[0]))
+    check(tp(xs) == threads(xs), "tuned mesh program differs from threads")
+    from repro_torch.core.autotune import plan_mesh
+    plan = plan_mesh(tp.profile, pipe)
+    check(plan == {"factorization": (1, 1)} and
+          (tp.tuned.n_stage, tp.tuned.n_worker) == (1, 1),
+          f"tuned mesh plan {plan}, mesh {(tp.tuned.n_stage, tp.tuned.n_worker)}")
+    print(f"lower(.., \"mesh\", tune=True): plan {plan} on "
+          f"{torch.cuda.device_count()} card(s); profile "
+          + "; ".join(f"{sp.kind}@{sp.path} {sp.service_us:.3f} us"
+                      for sp in tp.profile.stages), flush=True)
+    return counts["sw"]
+
+
+def phase_device_backend(dev, sw, ops, core, ctx, main, runs, db, queries,
+                         smi_line):
+    """Phase 12: (a) the tuned, monitored chunked search and a monitored
+    keyed reduction on procs; (b) ran in phase 7 (serving with ``slo=``);
+    (c) the device backend on the card.  Returns the SW launches of the
+    tuned search and of the device farm."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tuned = tuned_search(dev, sw, core, ctx, main, smi_line)
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    farm = device_backend(dev, sw, ops, core, ctx, runs, db, queries)
+    t_c = time.perf_counter() - t0
+    print(f"phase 12: (a) {t_a:.1f} s, (c) {t_c:.1f} s; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return tuned, farm
 
 
 def main():
@@ -2734,7 +3091,8 @@ def main():
     t0 = time.perf_counter()
     launches, runs, db, queries = phase_main_path(dev, sw, ops, core)
     print(f"one-subject farm phase {time.perf_counter() - t0:.1f} s", flush=True)
-    chunked_launches = phase_chunked(dev, sw, ops, core, runs, db, queries)
+    chunked_launches, chunked_main = phase_chunked(dev, sw, ops, core, runs,
+                                                   db, queries)
     rows = phase_timing(dev, sw, ops)
 
     model_worst = phase_model_kernels(dev, fa, ssd)
@@ -2742,15 +3100,22 @@ def main():
     model_rows = phase_model_timing(dev, fa, ssd)
     families = phase_families(dev)
     training = phase_training(dev, fa, ssd)
-    keyed_launches = phase_keyed(dev, sw, ops, core, queries, smi_line)
+    keyed_launches, keyed_ctx = phase_keyed(dev, sw, ops, core, queries,
+                                            smi_line)
+    tuned_launches, farm_launches = phase_device_backend(
+        dev, sw, ops, core, keyed_ctx, chunked_main, runs, db, queries,
+        smi_line)
 
     main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
         "name": "sw", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": launches + chunked_launches + keyed_launches,
+        "launches": launches + chunked_launches + keyed_launches
+        + tuned_launches + farm_launches,
         "launches_by_path": {"one-subject farm": launches,
                              "chunked search": chunked_launches,
-                             "keyed aggregation": keyed_launches},
+                             "keyed aggregation": keyed_launches,
+                             "tuned chunked search": tuned_launches,
+                             "device farm": farm_launches},
         "max_abs_err": worst, "exact_cases": cases,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

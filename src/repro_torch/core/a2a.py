@@ -1,8 +1,7 @@
 """All-to-all subsystem — the keyed-shuffle lowerings of :class:`AllToAll`.
 
-The port's copy of ``repro.core.a2a``, its threads and procs halves.  The
-reference's third lowering, one device program per keyed shuffle
-(``A2AMeshProgram``), belongs to the port's device-backend slice.
+The port's copy of ``repro.core.a2a``: its threads, procs and mesh
+lowerings.
 
 FastFlow's tutorial (TR-12-04) makes **all-to-all** the third core
 building block next to pipeline and farm: N left workers, each able to
@@ -27,19 +26,35 @@ Routing determinism matters more here than anywhere else in the runtime:
 two left vertices in *different processes* must agree where key ``"a"``
 lives, so the route hashes with :func:`stable_hash`, never the
 interpreter-salted builtin ``hash``.
+
+**mesh** (:class:`A2AMeshProgram`)
+    A keyed shuffle as ONE device program, for skeletons carrying a
+    static keyed-reduction spec (:class:`repro_torch.core.stream_ops.
+    KeyedReduce`): map stages apply elementwise, keys pick a destination
+    worker (``key % W``), :func:`repro_torch.core.dfarm.dispatch` moves
+    every row to its key's owner, and a segment reduction
+    (``index_add_``/``scatter_reduce``) over the static key space folds
+    each partition.  The port runs on one device, so ``W`` is 1 and the
+    exchange is the identity; more devices are ROADMAP §1 item 11.
 """
 from __future__ import annotations
 
 import math
+import time
 import zlib
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import graph as _graph
 from . import procgraph as _procgraph
 from .skeleton import (GO_ON, AllToAll, EmitMany, FnNode, KeyBatch,
-                       LoweringError, _ReorderNode, ff_node)
+                       LoweringError, Pipeline, Skeleton, Stage, _ReorderNode,
+                       _coerce_metrics, _coerce_tracer, _one_device,
+                       _tensor_callable, ff_node)
 
-__all__ = ["stable_hash", "KeyRouter", "build_thread_a2a", "build_proc_a2a"]
+__all__ = [
+    "stable_hash", "KeyRouter", "build_thread_a2a", "build_proc_a2a",
+    "A2AMeshProgram",
+]
 
 
 def stable_hash(key: Any) -> int:
@@ -447,3 +462,164 @@ def build_proc_a2a(skel: AllToAll, g: "_procgraph.ProcGraph",
         tv.outs.append(ring)
         out_rings.append(ring)
     return out_rings[0] if len(out_rings) == 1 else out_rings
+
+
+# ---------------------------------------------------------------------------
+# mesh lowering: the keyed shuffle as ONE device program
+# ---------------------------------------------------------------------------
+def _plan_mesh_a2a(skel: Skeleton) -> Tuple[List[Callable], AllToAll]:
+    """Flatten a skeleton into (elementwise pre-maps, the one AllToAll).
+    The shuffle must be the last stage: whatever follows it would consume
+    ``(key, fold)`` pairs, which have no array form on the mesh."""
+    stages = skel.stages if isinstance(skel, Pipeline) else [skel]
+    pre: List[Callable] = []
+    a2a: Optional[AllToAll] = None
+    for s in stages:
+        if isinstance(s, AllToAll):
+            if a2a is not None:
+                raise LoweringError(
+                    "the mesh keyed-shuffle program lowers exactly one "
+                    "AllToAll; chain reductions on the host backends")
+            a2a = s
+        elif a2a is None and isinstance(s, Stage):
+            pre.append(_tensor_callable(s.node))
+        else:
+            raise LoweringError(
+                f"the mesh keyed-shuffle program is Stage maps followed by "
+                f"ONE AllToAll; cannot place {type(s).__name__} "
+                f"{'after the shuffle' if a2a is not None else 'here'}")
+    assert a2a is not None
+    if len({id(n) for n in a2a.left_nodes}) != 1:
+        raise LoweringError(
+            "the mesh all-to-all is SPMD: all left workers must share one "
+            "tensor function")
+    pre.append(_tensor_callable(a2a.left_nodes[0]))
+    if a2a.reduce is None:
+        raise LoweringError(
+            "the mesh backend lowers AllToAll only as a static keyed "
+            "reduction (stream_ops.reduce_by_key with a named fold and "
+            "nkeys=): generic host-side right nodes cannot run as tensor "
+            "code — use the threads or procs backend for them")
+    return pre, a2a
+
+
+# mesh-side segment implementation of each named fold kind
+_SEG_KINDS = ("sum", "min", "max", "count")
+
+
+class A2AMeshProgram:
+    """The keyed shuffle compiled whole: ONE device program.
+
+    Per call: items pack into a padded ``(rows, payload+flag)`` array
+    (same bucketing discipline as :class:`~repro_torch.core.skeleton.
+    MeshProgram`, so nearby sizes reuse the program); inside the program
+    each row computes its key (``reduce.by``, applied to the whole column
+    — it must be tensor-polymorphic, which for arithmetic like ``x % k``
+    is the scalar form verbatim), every row travels to the worker that
+    owns its key (``key % W`` — the same mod-partitioning the host route's
+    :func:`stable_hash` gives integer keys) via
+    :func:`repro_torch.core.dfarm.dispatch`, and a segment reduction
+    (``index_add_`` for sum and count, ``scatter_reduce`` for min and
+    max) folds each key's partition.  Returns ``[(key, fold), ...]`` for
+    the keys that actually occurred — the same unordered contract as the
+    host backends' EOS flush.
+
+    Static key space required: ``reduce.nkeys`` bounds the segment
+    arrays, and ``by`` must yield integer keys in ``[0, nkeys)``; a key
+    out of range is refused (checked on the device, one read a call).
+    One device (``device=``, ``None`` the card): ``devices`` above 1 is
+    ROADMAP §1 item 11 and raises.
+    """
+
+    backend = "mesh"
+
+    def __init__(self, skeleton: Skeleton, *, devices: Optional[int] = None,
+                 block: int = 64, capacity: Optional[int] = None,
+                 grain: Optional[int] = None, trace: Any = False,
+                 metrics: Any = False, device: Any = None):
+        from . import dfarm
+
+        self.skeleton = skeleton
+        self.pre, self.a2a = _plan_mesh_a2a(skeleton)
+        red = self.a2a.reduce
+        kind = getattr(red.fold, "kind", None)
+        if kind not in _SEG_KINDS:
+            raise LoweringError(
+                f"mesh keyed reduction needs a named fold with a segment "
+                f"implementation (have {_SEG_KINDS}), got {kind!r}")
+        if red.nkeys is None:
+            raise LoweringError(
+                "mesh keyed reduction needs a static key space: pass "
+                "nkeys= to reduce_by_key (keys must lie in [0, nkeys))")
+        self.by = red.by
+        self.kind = kind
+        self.nkeys = int(red.nkeys)
+        self.block = block
+        _one_device(devices)
+        self.n_worker = 1
+        self.device = dfarm.resolve_device(device)
+        self._programs: Dict[Tuple[int, str], Callable] = {}
+        self.tracer = _coerce_tracer(trace)
+        self.metrics = _coerce_metrics(metrics)
+        self.last_trace = None
+        self.last_report = None
+        self._lane = None
+        if self.tracer is not None:
+            self._lane = self.tracer.vertex("mesh-program")
+            self._lane.instant("devices", {
+                "devices": self.n_worker, "n_stage": 1,
+                "n_worker": self.n_worker})
+
+    def _bucket_rows(self, n: int) -> int:
+        rows = max(-(-n // self.n_worker), 1, self.block)
+        return 1 << (rows - 1).bit_length()
+
+    def __call__(self, items: Any) -> List[Tuple[int, Any]]:
+        from . import dfarm
+
+        xs = list(items)
+        if not xs:
+            return []
+        arr = dfarm.pack(xs, "the host backends fold exact Python ints")
+        if arr.ndim != 1:
+            raise LoweringError(
+                "the mesh keyed shuffle streams scalar items (fold values "
+                "are per-key scalars)")
+        n = arr.shape[0]
+        rows = self._bucket_rows(n)
+        # validity flag: padding rows never reduce
+        padded = dfarm.pad(arr[:, None], self.n_worker * rows)
+        prog = self._program(rows, str(arr.dtype))
+        t0 = time.monotonic()
+        acc, cnt = prog(padded, n)
+        t1 = time.monotonic()
+        if self._lane is not None:
+            self._lane.span("call", t0, t1, {"items": n, "rows": rows})
+            self.last_trace = self.tracer.trace()
+        if self.metrics is not None:
+            reg = self.metrics
+            reg.counter("mesh.calls").inc()
+            reg.counter("mesh.items").inc(n)
+            reg.gauge("mesh.devices").set(self.n_worker)
+            reg.histogram("mesh.call_us").observe((t1 - t0) * 1e6)
+            self.last_report = reg.finalize(reg.report(meta={
+                "backend": "mesh", "items_in": n, "rows": rows,
+                "wall_s": t1 - t0}))
+        return [(k, acc[k]) for k in range(self.nkeys) if cnt[k] > 0]
+
+    def _program(self, rows: int, dtype: str) -> Callable:
+        key = (rows, dtype)
+        if key in self._programs:
+            return self._programs[key]
+        t_compile = time.monotonic()
+        from . import dfarm
+        program = dfarm.keyed_program(self.pre, self.by, self.kind,
+                                      self.nkeys, self.n_worker, rows,
+                                      self.device)
+        if self._lane is not None:
+            self._lane.span("compile", t_compile, time.monotonic(),
+                            {"rows": rows, "dtype": dtype})
+        if self.metrics is not None:
+            self.metrics.counter("mesh.compiles").inc()
+        self._programs[key] = program
+        return program

@@ -34,7 +34,11 @@ lowering shares, built around that constraint:
 
 :class:`RunReport`
     One snapshot per program run (``MetricsRegistry.report``), merged
-    across runs; ``ServeEngine.run`` leaves one on ``last_report``.
+    across runs; ``ServeEngine.run`` and ``lower(.., metrics=True)``
+    programs leave one on ``last_report``.  ``watch()`` callbacks fire on
+    every finalized report, and :meth:`RunReport.to_profile` rebuilds an
+    autotune ``Profile`` so ``Profile.diff`` can compare a live run
+    against a saved pilot.
 
 Everything here is stdlib-only: no torch, no numpy.
 """
@@ -483,8 +487,9 @@ class RunReport:
     ``merge`` folds another report in (counters add, gauges last-write,
     queue high-waters max) — the procs collector uses it to merge the
     per-run child telemetry, and callers can fold many runs into one
-    trend point.  The reference's ``to_profile`` (an autotune ``Profile``
-    for online re-tuning) comes with the port of autotune."""
+    trend point.  ``to_profile`` rebuilds an autotune ``Profile`` so
+    ``Profile.diff`` compares a live run against a saved pilot — the
+    online re-tuning seam."""
 
     schema = "run-report/1"
 
@@ -530,6 +535,35 @@ class RunReport:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_json(), f, indent=2, sort_keys=True)
+
+    def to_profile(self, handoff_us: Optional[float] = None) -> Any:
+        """Rebuild an autotune ``Profile`` from this report, so
+        ``report.to_profile().diff(saved_profile)`` answers "has the
+        live run drifted from the pilot?" — the hook online re-tuning
+        hangs off.  Farm rows become farm-kind stage profiles (service
+        from the worker EWMA mean, items from ``tasks_collected``,
+        queue high-water from the matching dispatch lane)."""
+        from .autotune import Profile, StageProfile
+
+        stages = []
+        items = 0
+        for qual, fs in sorted(self.farms.items()):
+            name, _, path = qual.partition("@")
+            ewma = fs.get("service_ewma") or {}
+            svc = (sum(ewma.values()) / len(ewma) * 1e6) if ewma else 0.0
+            n = int(fs.get("tasks_collected", 0))
+            items = max(items, n)
+            hw = 0
+            for q, v in self.queues.items():
+                if q.endswith(f"@{path}") or (not path and "@" not in q):
+                    hw = max(hw, v)
+            stages.append(StageProfile(
+                path=path, kind="farm", name=name, service_us=svc,
+                service_ewma_us=svc, items=n, width=len(ewma) or 1,
+                queue_high_water=hw))
+        h = handoff_us if handoff_us is not None \
+            else float(self.gauges.get("handoff_us", 1.0))
+        return Profile(handoff_us=h, pilot_items=items, stages=stages)
 
     def __repr__(self) -> str:
         return (f"RunReport(counters={len(self.counters)}, "

@@ -1,8 +1,6 @@
 """Process-graph runtime — the ``procs`` backend of the skeleton IR.
 
-The port's copy of ``repro.core.procgraph``.  Its ``metrics=`` and
-``monitor=`` options, like the threads backend's, belong to a later slice
-of the port and raise :class:`~repro_torch.core.skeleton.LoweringError`.
+The port's copy of ``repro.core.procgraph``.
 
 ``graph.py`` runs every vertex as a *thread*, which keeps the runtime
 cheap but leaves pure-Python stages serialised behind the GIL: the
@@ -82,14 +80,14 @@ import time
 import multiprocessing as mp
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
-from .obs import VertexTracer, qualname as _qualname
+from .obs import VertexTracer, farm_stats_snapshot, qualname as _qualname
 from .sched import Scheduler, make_scheduler
 from .shm import ShmCounters, ShmFlag, ShmRing
 from .skeleton import (BACKENDS, GO_ON, AllToAll, EmitMany, Farm, FarmStats,
                        Feedback, KeyBatch, LoweringError, Pipeline, Skeleton,
-                       Source, Stage, _FarmEmitMany, _coerce_tracer,
-                       _has_grained_stage, as_skeleton, ff_node,
-                       fuse as _fuse_pass)
+                       Source, Stage, _FarmEmitMany, _coerce_metrics,
+                       _coerce_monitor, _coerce_tracer, _has_grained_stage,
+                       as_skeleton, ff_node, fuse as _fuse_pass, walk_stats)
 from .spsc import EOS, SPSCQueue
 
 __all__ = [
@@ -1578,9 +1576,11 @@ class ProcProgram:
     off / int / ``"grain"``), ``pool`` (spawn-pool reuse; ``None`` =
     honour ``REPRO_PROCS_POOL``, default on).  ``trace=`` works as on
     threads: each vertex builds its lane from plain config and ships it
-    home over its control ring at EOS.  The reference's ``metrics=`` and
-    ``monitor=`` belong to a later slice of the port and raise
-    :class:`LoweringError`."""
+    home over its control ring at EOS.  ``metrics=`` merges the per-run
+    child telemetry (farm stats, queue high-water marks, pool stats) into
+    one :class:`~repro_torch.core.obs.RunReport` on ``last_report``;
+    ``monitor=`` samples the live counter boards and queue depths while
+    the run drains (:mod:`repro_torch.core.monitor`)."""
 
     backend = "procs"
 
@@ -1591,11 +1591,6 @@ class ProcProgram:
                  pool: Optional[bool] = None,
                  trace: Any = False, metrics: Any = False,
                  monitor: Any = None):
-        for opt, on in (("metrics", metrics), ("monitor", monitor)):
-            if on:
-                raise LoweringError(
-                    f"{opt}= is the run-report/monitor slice, not yet "
-                    f"ported to repro_torch")
         if fuse and isinstance(skeleton, Pipeline):
             force = fuse is True
             thr = fuse_threshold_us
@@ -1611,12 +1606,18 @@ class ProcProgram:
         self.batch = batch
         self.pool = pool
         self.tracer = _coerce_tracer(trace)
+        self.metrics = _coerce_metrics(metrics)
+        self.monitor = _coerce_monitor(monitor)
         self.last_trace = None
+        self.last_report = None
 
     def to_graph(self, stream: Optional[Iterable[Any]] = None) -> ProcGraph:
         g = ProcGraph(capacity=self.capacity, slot_size=self.slot_size,
                       zero_copy=self.zero_copy, batch=self.batch,
                       pool=self.pool)
+        # per-farm live counter boards exist only when a monitor will read
+        # them — a monitorless lowering allocates nothing extra
+        g.live_telemetry = self.monitor is not None
         try:
             # Build the driving Source separately (at path "in") so the
             # user skeleton keeps its root IR paths — telemetry keys
@@ -1637,7 +1638,34 @@ class ProcProgram:
         xs = list(items)
         if not xs:
             return []  # nothing to stream; skip the spawn entirely
-        out = self.to_graph(xs).run_and_wait(self.timeout)
+        g = self.to_graph(xs)
+        reg = self.metrics
+        mon = self.monitor
+        if mon is not None:
+            mon.attach(g, skeleton=self.skeleton, backend="procs")
+        try:
+            if reg is None:
+                out = g.run_and_wait(self.timeout)
+            else:
+                hw: Dict[str, int] = {}
+                t0 = time.monotonic()
+                g.run()
+
+                def drain() -> bool:  # the wait loop doubles as the hw tap
+                    g.sample_high_water(hw)
+                    return g.poll_results()
+
+                out = g._wait_until(drain, self.timeout)
+                farms = {q: farm_stats_snapshot(st)
+                         for q, st in walk_stats(self.skeleton)}
+                self.last_report = reg.finalize(reg.report(
+                    farms=farms, queues=hw, pool=pool_stats(),
+                    meta={"backend": "procs", "vertices": len(g.vertices),
+                          "items_in": len(xs), "items_out": len(out),
+                          "wall_s": time.monotonic() - t0}))
+        finally:
+            if mon is not None:
+                mon.detach()
         if self.tracer is not None:
             self.last_trace = self.tracer.trace()
         return out

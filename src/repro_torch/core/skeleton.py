@@ -20,21 +20,41 @@ Execution is a separate step, :func:`lower`:
     vertex a spawned process, every edge a shared-memory SPSC ring, with
     the same ordered-output contract.
 
-This is the port's copy of the reference runtime (``repro.core.skeleton``).
-The reference's device backend ``"mesh"`` (one device program per
-skeleton) and its ``tune=``/``monitor=``/``metrics=`` options belong to
-later slices of the port: :func:`lower` and the programs raise
-:class:`LoweringError` naming them.
+``lower(skel, backend="mesh")``
+    produces a :class:`MeshProgram`: the whole skeleton as **one** device
+    program over ``(rows, d)`` tensors on one device (a CUDA card by
+    default, ``device="cpu"`` for the plain path), the stage chain run in
+    order inside it with ``dfarm.farm_map`` for each farm and
+    ``dfarm.farm_until`` for each wrap-around loop — no host SPSC hop
+    between stages.  Skeletons holding an :class:`AllToAll` compile to the
+    keyed-shuffle program (:class:`~repro_torch.core.a2a.A2AMeshProgram`).
+    More than one device is multi-GPU (ROADMAP §1 item 11), not yet
+    ported: ``devices > 1`` raises :class:`LoweringError`.
+
+This is the port's copy of the reference runtime (``repro.core.skeleton``):
+the same IR, the same ordered outputs on every backend, the same
+``tune=``/``profile=`` two-phase compile (:mod:`.autotune`),
+``metrics=`` run reports and ``monitor=`` live sampling (:mod:`.monitor`).
+The host backends additionally support host-only features (``GO_ON``
+filtering, emitter / collector nodes, speculative re-issue, arbitrary
+``feedback=`` routing), which the mesh lowering rejects with a
+:class:`LoweringError` rather than silently approximating.
 
 The programming-model primitives (``ff_node``, ``FnNode``, ``GO_ON``) live
-here too: they are the *node* vocabulary every backend shares.
+here too: they are the *node* vocabulary every backend shares (the mesh
+backend unwraps ``FnNode`` to its callable and applies it to ``(rows, d)``
+tensors, which for elementwise arithmetic is identical to the scalar form).
+
+Plain Python: the mesh programs import torch inside their constructors.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Type
 
-from .obs import Tracer, qualname as _obs_qualname
+from .obs import (MetricsRegistry, Tracer, farm_stats_snapshot,
+                  qualname as _obs_qualname)
 
 __all__ = [
     "GO_ON", "EmitMany", "KeyBatch", "ff_node", "FnNode", "FusedNode",
@@ -42,7 +62,7 @@ __all__ = [
     "Skeleton", "Stage", "Source", "Pipeline", "Farm", "Feedback",
     "AllToAll",
     "compose", "as_skeleton", "fuse", "walk_stats",
-    "LoweringError", "lower", "BACKENDS", "ThreadProgram",
+    "LoweringError", "lower", "BACKENDS", "ThreadProgram", "MeshProgram",
 ]
 
 
@@ -381,7 +401,7 @@ class Stage(Skeleton):
 
     ``capacity`` sizes this stage's *outbound* SPSC ring on the host
     backends (``None`` = the graph-wide default) — the per-edge knob the
-    autotune pass (:mod:`repro.core.autotune`) sets from the measured
+    autotune pass (:mod:`repro_torch.core.autotune`) sets from the measured
     producer/consumer service-rate ratio."""
 
     def __init__(self, node: Any, *, name: str = "ff-stage",
@@ -976,9 +996,6 @@ class LoweringError(ValueError):
 
 BACKENDS: Dict[str, Type] = {}
 
-#: backends of the reference that belong to later slices of this port
-_LATER_BACKENDS = {"mesh": "the device-backend slice"}
-
 
 def lower(skel: Any, backend: str = "threads", **opts: Any):
     """Lower a skeleton to an executable program on ``backend``.
@@ -988,20 +1005,24 @@ def lower(skel: Any, backend: str = "threads", **opts: Any):
     Backends are a registry (``BACKENDS``) so scheduling policies and
     fused runtimes can plug in without touching the IR.
 
-    The reference's ``"mesh"`` backend and its
-    ``tune=``/``profile=`` two-phase compile belong to later slices of
-    the port and raise :class:`LoweringError` here.
+    ``tune=True`` makes the compile two-phase: the first call runs a
+    bounded pilot slice of the stream through an instrumented threads
+    lowering, records per-stage service times / queue high-water marks /
+    hand-off cost into a :class:`repro_torch.core.autotune.Profile`,
+    re-lowers via ``retune()`` with measured grains and ring capacities,
+    and runs the remainder (plus all later calls) through the tuned
+    program.  ``tune_pilot=`` bounds the pilot slice (item count);
+    ``profile=`` skips the pilot entirely and re-lowers from a
+    saved/loaded Profile.
     """
     skel = as_skeleton(skel)
-    for opt in ("tune", "tune_pilot", "profile"):
-        if opts.get(opt):
-            raise LoweringError(
-                f"lower({opt}=...) is the self-tuning slice, not yet "
-                f"ported to repro_torch")
-    if backend in _LATER_BACKENDS:
-        raise LoweringError(
-            f"backend {backend!r} is {_LATER_BACKENDS[backend]}, not yet "
-            f"ported to repro_torch (have {sorted(BACKENDS)})")
+    tune = opts.pop("tune", False)
+    tune_pilot = opts.pop("tune_pilot", None)
+    profile = opts.pop("profile", None)
+    if tune or profile is not None:
+        from .autotune import TunedProgram
+        return TunedProgram(skel, backend, pilot=tune_pilot,
+                            profile=profile, opts=opts)
     try:
         cls = BACKENDS[backend]
     except KeyError:
@@ -1012,7 +1033,7 @@ def lower(skel: Any, backend: str = "threads", **opts: Any):
 
 def walk_stats(skel: Skeleton, path: str = "") -> Iterable[Tuple[str, Any]]:
     """Yield ``(qualname, FarmStats)`` for every stats-carrying node in
-    the IR tree — the walk a run report absorbs.
+    the IR tree — the walk a :class:`~repro_torch.core.obs.RunReport` absorbs.
     Keys are IR-path qualified (``ff-farm@1``), so two farms in one
     pipeline land in separate report rows."""
     if isinstance(skel, Pipeline):
@@ -1030,6 +1051,25 @@ def _coerce_tracer(trace: Any) -> Optional[Tracer]:
     return Tracer() if trace else None
 
 
+def _coerce_metrics(metrics: Any) -> Optional[MetricsRegistry]:
+    if isinstance(metrics, MetricsRegistry):
+        return metrics
+    return MetricsRegistry() if metrics else None
+
+
+def _coerce_monitor(monitor: Any):
+    """``monitor=`` on lower(): None/False -> off, True -> a fresh
+    default :class:`~repro_torch.core.monitor.Monitor`, an instance ->
+    shared.  The import is lazy so ``monitor=None`` programs never touch
+    monitor.py at all."""
+    if not monitor:
+        return None
+    from .monitor import Monitor
+    if isinstance(monitor, Monitor):
+        return monitor
+    return Monitor()
+
+
 class ThreadProgram:
     """Threads lowering: the skeleton wired onto the graph runtime (one
     thread per vertex, lock-free SPSC rings for every edge).
@@ -1044,9 +1084,15 @@ class ThreadProgram:
     ``trace=True`` (or a :class:`~repro_torch.core.obs.Tracer`) gives every
     vertex a sampled event lane; the merged
     :class:`~repro_torch.core.obs.Trace` lands on ``last_trace`` after each
-    call.  The reference's ``metrics=`` (a run report per call) and
-    ``monitor=`` (the live sampler) belong to a later slice of the port
-    and raise :class:`LoweringError`."""
+    call.  ``metrics=True`` (or a
+    :class:`~repro_torch.core.obs.MetricsRegistry`) samples queue depths
+    while the run drains and absorbs the skeleton's ``FarmStats`` into a
+    :class:`~repro_torch.core.obs.RunReport` on ``last_report``.
+
+    ``monitor=True`` (or a :class:`~repro_torch.core.monitor.Monitor`)
+    attaches the continuous live sampler for the duration of each call:
+    queue depths, farm EWMAs and counters land in ``monitor.timeline``
+    while the stream runs — see :mod:`repro_torch.core.monitor`."""
 
     backend = "threads"
 
@@ -1055,11 +1101,6 @@ class ThreadProgram:
                  fuse: Any = "auto", fuse_threshold_us: Optional[float] = None,
                  trace: Any = False, metrics: Any = False,
                  monitor: Any = None):
-        for opt, on in (("metrics", metrics), ("monitor", monitor)):
-            if on:
-                raise LoweringError(
-                    f"{opt}= is the run-report/monitor slice, not yet "
-                    f"ported to repro_torch")
         if fuse and isinstance(skeleton, Pipeline):
             force = fuse is True
             thr = fuse_threshold_us
@@ -1071,13 +1112,20 @@ class ThreadProgram:
         self.queue_class = queue_class
         self.capacity = capacity
         self.tracer = _coerce_tracer(trace)
+        self.metrics = _coerce_metrics(metrics)
+        self.monitor = _coerce_monitor(monitor)
         self.last_trace = None
+        self.last_report = None
 
     def to_graph(self, stream: Optional[Iterable[Any]] = None):
         from . import graph  # the threads backend (vertex machinery)
         from .spsc import SPSCQueue
         g = graph.Graph(queue_class=self.queue_class or SPSCQueue,
                         capacity=self.capacity)
+        # a live monitor wants per-worker service EWMAs: opt the farm
+        # workers into the timing they otherwise skip (same flag the
+        # procs backend uses to arm its live counter boards)
+        g.live_telemetry = self.monitor is not None
         # Build the driving Source separately (at path "in") so the user
         # skeleton keeps its root IR paths — telemetry keys vertices by
         # path, and wrapping in a fresh Pipeline would shift every
@@ -1091,10 +1139,293 @@ class ThreadProgram:
         return g
 
     def __call__(self, items: Iterable[Any]) -> List[Any]:
-        out = self.to_graph(list(items)).run_and_wait()
+        xs = list(items)
+        g = self.to_graph(xs)
+        reg = self.metrics
+        mon = self.monitor
+        if mon is not None:
+            mon.attach(g, skeleton=self.skeleton, backend="threads")
+        try:
+            if reg is None:
+                out = g.run_and_wait()
+            else:
+                hw: Dict[str, int] = {}
+                t0 = time.monotonic()
+                # a short run can finish before the first poll below: the
+                # drain sampler runs inside wait() after the vertex threads
+                # join but before teardown, so every edge key still lands
+                # exactly once — and never races the caller's results drain
+                g.drain_samplers.append(lambda: g.sample_high_water(hw))
+                g.run()
+                while any(t.is_alive() for t in g._threads):
+                    g.sample_high_water(hw)
+                    time.sleep(0.0005)
+                out = g.wait()
+                farms = {q: farm_stats_snapshot(st)
+                         for q, st in walk_stats(self.skeleton)}
+                self.last_report = reg.finalize(reg.report(
+                    farms=farms, queues=hw,
+                    meta={"backend": "threads", "vertices": len(g.vertices),
+                          "items_in": len(xs), "items_out": len(out),
+                          "wall_s": time.monotonic() - t0}))
+        finally:
+            if mon is not None:
+                mon.detach()
         if self.tracer is not None:
             self.last_trace = self.tracer.trace()
         return out
 
 
 BACKENDS["threads"] = ThreadProgram
+
+
+# ---------------------------------------------------------------------------
+# mesh lowering: one device program for the whole skeleton
+# ---------------------------------------------------------------------------
+#: what a mesh program over more than one device waits for
+MULTI_GPU = "multi-GPU, ROADMAP §1 item 11, not yet ported to repro_torch"
+
+
+@dataclass
+class _MeshStage:
+    # NOTE: no per-stage worker count — mesh parallelism is always the
+    # negotiated worker-axis size (see the Farm docstring)
+    kind: str                                  # "map" | "farm" | "feedback"
+    fn: Callable
+    loop_while: Optional[Callable] = None
+    max_trips: Optional[int] = None
+
+
+def _tensor_callable(node: ff_node) -> Callable:
+    """The tensor function behind a node (FnNode unwraps)."""
+    return node._fn if isinstance(node, FnNode) else node.svc
+
+
+def _mesh_plan(skel: Skeleton) -> List[_MeshStage]:
+    """Flatten a skeleton into the mesh backend's stage list, rejecting
+    host-only features instead of silently approximating them."""
+    if isinstance(skel, Pipeline):
+        return [ms for s in skel.stages for ms in _mesh_plan(s)]
+    if isinstance(skel, Stage):
+        return [_MeshStage("map", _tensor_callable(skel.node))]
+    if isinstance(skel, Feedback):
+        return [_MeshStage("feedback", _tensor_callable(skel.node),
+                           loop_while=skel.loop_while,
+                           max_trips=skel.max_trips)]
+    if isinstance(skel, Farm):
+        if skel.feedback is not None:
+            raise LoweringError(
+                "Farm(feedback=route) is the thread backend's general "
+                "routing protocol; use Feedback(worker, loop_while) for a "
+                "backend-neutral wrap-around loop")
+        if skel.emitter is not None or skel.collector is not None:
+            raise LoweringError(
+                "emitter/collector nodes are host-side arbiters; the mesh "
+                "farm's dispatch/combine replace them")
+        if len({id(n) for n in skel.worker_nodes}) != 1:
+            raise LoweringError(
+                "mesh farms are SPMD: all workers must share one function")
+        return [_MeshStage("farm", _tensor_callable(skel.worker_nodes[0]))]
+    if isinstance(skel, Source):
+        raise LoweringError(
+            "a mesh program takes its stream as the call argument; drop "
+            "the Source stage")
+    raise LoweringError(f"cannot lower {skel!r} to the mesh backend")
+
+
+def _skeleton_grain(skel: Skeleton) -> Optional[int]:
+    if isinstance(skel, Pipeline):
+        for s in skel.stages:
+            g = _skeleton_grain(s)
+            if g:
+                return g
+        return None
+    return getattr(skel, "grain", None)
+
+
+def _one_device(devices: Optional[int],
+                factorization: Optional[Tuple[int, int]] = None) -> None:
+    """Refuse a mesh over more than one device: the exchanges between
+    devices are item 11's."""
+    if devices is not None and devices > 1:
+        raise LoweringError(
+            f"devices={devices}: a mesh program over more than one device "
+            f"is {MULTI_GPU}; it runs on one device")
+    if factorization is not None \
+            and factorization[0] * factorization[1] > 1:
+        raise LoweringError(
+            f"factorization {tuple(factorization)} spans more than one "
+            f"device, which is {MULTI_GPU}")
+
+
+class MeshProgram:
+    """Mesh lowering: the whole skeleton as ONE device program.
+
+    The reference negotiates a 2-D ``(stage, worker)`` mesh from the
+    device count; the port runs on one device (``device=``: ``None`` is
+    the CUDA card and raises without one, ``"cpu"`` the plain path), so
+    the mesh is ``(1, 1)`` and the stage chain runs in order inside one
+    program — each farm through ``dfarm.farm_map`` (dispatch, worker,
+    ordered combine), each wrap-around loop through ``dfarm.farm_until``
+    (a host loop that reads the continue flag once a trip), with no host
+    hop between stages.  ``devices=`` above 1, or a ``factorization``
+    over more than one device, is multi-GPU (ROADMAP §1 item 11) and
+    raises :class:`LoweringError`.
+
+    Items are packed host-side into a ``(rows, d)`` array (scalars become
+    ``d=1``), padded to a row bucket (power of two floored at ``block``,
+    aligned to ``grain``, so repeated calls with nearby sizes reuse the
+    program) with a validity-flag column, moved to the device, and
+    unpacked in order on the way out as Python scalars or lists.  One
+    program is built per ``(rows, d, dtype)`` bucket: a plain function
+    closed over the plan, counted in ``mesh.compiles``.
+
+    Observability as the reference's: ``trace=`` gives a ``mesh-program``
+    lane with a ``devices`` instant and ``compile``/``call`` spans;
+    ``metrics=`` the ``mesh.calls``, ``mesh.items``, ``mesh.devices``,
+    ``mesh.call_us`` and ``mesh.compiles`` metrics; ``monitor=`` one
+    :meth:`~repro_torch.core.monitor.Monitor.program_frame` per call.
+    """
+
+    backend = "mesh"
+
+    def __init__(self, skeleton: Skeleton, *, devices: Optional[int] = None,
+                 grain: Optional[int] = None, capacity: Optional[int] = None,
+                 block: int = 64,
+                 factorization: Optional[Tuple[int, int]] = None,
+                 trace: Any = False, metrics: Any = False,
+                 monitor: Any = None, device: Any = None):
+        from . import dfarm, dpipeline
+
+        self.skeleton = skeleton
+        self.stages = _mesh_plan(skeleton)
+        assert self.stages, "empty skeleton"
+        self.grain = grain if grain is not None else _skeleton_grain(skeleton)
+        self.capacity = capacity
+        self.block = block
+        _one_device(devices, factorization)
+        ndev = 1
+        if factorization is not None:
+            # autotune override (plan_mesh): only (1, 1) is expressible on
+            # one device; the reference's rules name what else is wrong
+            n_stage, n_worker = factorization
+            if n_stage not in (1, len(self.stages)) \
+                    or n_stage * n_worker > ndev or n_worker < 1:
+                raise LoweringError(
+                    f"factorization {factorization} is not expressible on "
+                    f"{ndev} devices for {len(self.stages)} stages")
+            self.n_stage, self.n_worker = n_stage, n_worker
+        else:
+            self.n_stage, self.n_worker = dpipeline.negotiate_stage_axis(
+                len(self.stages), ndev)
+        self.device = dfarm.resolve_device(device)
+        self._programs: Dict[Tuple[int, int, str], Callable] = {}
+        # observability: a mesh run has no host vertices, so the trace is
+        # program-level — one "mesh-program" lane carrying a devices
+        # instant, one compile span per cache miss, one call span per run
+        self.tracer = _coerce_tracer(trace)
+        self.metrics = _coerce_metrics(metrics)
+        # live monitoring: no host vertices to sample, so each call pushes
+        # one program-level counter frame (Monitor.program_frame)
+        self.monitor = _coerce_monitor(monitor)
+        self._mon_calls = 0
+        self._mon_items = 0
+        self.last_trace = None
+        self.last_report = None
+        self._lane = None
+        if self.tracer is not None:
+            self._lane = self.tracer.vertex("mesh-program")
+            self._lane.instant("devices", {
+                "devices": self.n_stage * self.n_worker,
+                "n_stage": self.n_stage, "n_worker": self.n_worker})
+
+    # -- host-side packing ---------------------------------------------------
+    def _bucket_rows(self, n: int) -> int:
+        """Per-device row count: enough for ``n`` items over the worker
+        axis, floored at ``block`` and rounded to a power of two (bounds
+        the programs built), then aligned to the microbatch grain."""
+        rows = max(-(-n // self.n_worker), 1, self.block)
+        rows = 1 << (rows - 1).bit_length()
+        if self.grain:
+            rows = self.grain * (-(-rows // self.grain))
+        return rows
+
+    def __call__(self, items: Iterable[Any]) -> List[Any]:
+        from . import dfarm
+
+        xs = list(items)
+        if not xs:
+            return []
+        arr = dfarm.pack(xs, "the threads backend computes exact Python ints")
+        squeeze = arr.ndim == 1
+        if squeeze:
+            arr = arr[:, None]
+        if arr.ndim != 2:
+            raise LoweringError("mesh payloads must be scalars or 1-D items")
+        n, d = arr.shape
+        rows = self._bucket_rows(n)
+        # last column is the validity flag (dfarm.pad)
+        padded = dfarm.pad(arr, self.n_worker * rows)
+        prog = self._program(rows, d, str(arr.dtype))
+        t0 = time.monotonic()
+        out = prog(padded)
+        t1 = time.monotonic()
+        if self._lane is not None:
+            self._lane.span("call", t0, t1, {"items": n, "rows": rows})
+            self.last_trace = self.tracer.trace()
+        if self.metrics is not None:
+            reg = self.metrics
+            reg.counter("mesh.calls").inc()
+            reg.counter("mesh.items").inc(n)
+            reg.gauge("mesh.devices").set(self.n_stage * self.n_worker)
+            reg.histogram("mesh.call_us").observe((t1 - t0) * 1e6)
+            self.last_report = reg.finalize(reg.report(
+                meta={"backend": "mesh", "n_stage": self.n_stage,
+                      "n_worker": self.n_worker}))
+        if self.monitor is not None:
+            self._mon_calls += 1
+            self._mon_items += n
+            self.monitor.program_frame({
+                "mesh.calls": self._mon_calls,
+                "mesh.items": self._mon_items,
+                "mesh.compiles": len(self._programs),
+                "mesh.devices": self.n_stage * self.n_worker,
+                "mesh.call_us": (t1 - t0) * 1e6})
+        return dfarm.unpack(out, n, d, squeeze)
+
+    # -- the single device program -------------------------------------------
+    def _program(self, rows: int, d: int, dtype: str) -> Callable:
+        key = (rows, d, dtype)
+        if key in self._programs:
+            return self._programs[key]
+        t_compile = time.monotonic()
+        from . import dfarm
+        program = dfarm.chain_program(self.stages, self.n_worker,
+                                      self.capacity, self.device)
+        self._programs[key] = program
+        if self._lane is not None:
+            self._lane.span("compile", t_compile, time.monotonic(),
+                            {"rows": rows, "d": d, "dtype": dtype})
+        if self.metrics is not None:
+            self.metrics.counter("mesh.compiles").inc()
+        return program
+
+
+def _contains_a2a(skel: Skeleton) -> bool:
+    if isinstance(skel, Pipeline):
+        return any(_contains_a2a(s) for s in skel.stages)
+    return isinstance(skel, AllToAll)
+
+
+def _mesh_backend(skeleton: Skeleton, **opts: Any):
+    """Mesh-backend factory: skeletons containing an :class:`AllToAll`
+    compile to the keyed-shuffle program (:class:`repro_torch.core.a2a.
+    A2AMeshProgram` — dispatch-by-key exchange + segment reduction in one
+    device program); everything else to :class:`MeshProgram`."""
+    if _contains_a2a(skeleton):
+        from .a2a import A2AMeshProgram
+        return A2AMeshProgram(skeleton, **opts)
+    return MeshProgram(skeleton, **opts)
+
+
+BACKENDS["mesh"] = _mesh_backend

@@ -36,7 +36,7 @@ import torch
 
 from ..configs import ARCHS
 from ..core.allocator import PagePool
-from ..core.obs import MetricsRegistry
+from ..core.obs import MetricsRegistry, Tracer
 from ..core.sched import CostModel
 from ..core.skeleton import Farm, Source, compose, lower
 from ..core.spsc import SPSCQueue
@@ -68,8 +68,15 @@ class Request:
 class ServeEngine:
     """Continuous-batching engine over ``decode_step`` on ``device``
     (``None``: the card).  ``params`` defaults to ``init_params(cfg,
-    seed)``.  The reference's ``slo=`` (an ``SLOMonitor``) waits for the
-    port of ``core/monitor.py``: anything but ``None`` raises.
+    seed)``.
+
+    ``slo=`` takes a :class:`~repro_torch.core.monitor.SLOMonitor` — after
+    every ``run()`` its thresholds (p99 latency over the engine's
+    ``serve.request_latency_us`` histogram, goodput in tokens/s) are
+    checked; alerts land in ``slo.events``, in the registry's
+    ``slo.alerts`` counter (and its ``watch()`` callbacks), and as
+    ``alert`` instants on an ``slo-monitor`` trace lane
+    (``engine.last_trace``), time-aligned with the run.
 
     The step feeds token ids only, so two families are refused here, at
     construction: audio (the reference's step raises the same error) and
@@ -79,10 +86,6 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, *, max_batch: int = 4,
                  max_len: int = 256, seed: int = 0, params=None,
                  slo=None, device: Any = None):
-        if slo is not None:
-            raise NotImplementedError(
-                "slo= needs SLOMonitor, which comes with the port of "
-                "core/monitor.py (ROADMAP)")
         if cfg.family == "audio":
             raise NotImplementedError("audio serving uses frame embeddings")
         if cfg.family == "vlm":
@@ -110,6 +113,14 @@ class ServeEngine:
         self.metrics = MetricsRegistry()
         self._latency = self.metrics.histogram("serve.request_latency_us")
         self.last_report = None
+        self.slo = slo
+        self.tracer = None
+        self.last_trace = None
+        if slo is not None:
+            if slo.registry is None:
+                slo.registry = self.metrics
+            self.tracer = Tracer()
+            slo.bind(self.tracer)
 
     # -- emitter side --------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -256,7 +267,9 @@ class ServeEngine:
         n_before = len(self.results)
         toks_before = sum(len(r.generated) for r in self.results)
         t0 = time.monotonic()
-        lower(net, "threads").to_graph().run_and_wait()
+        prog = lower(net, "threads",
+                     trace=self.tracer if self.tracer is not None else False)
+        prog.to_graph().run_and_wait()
         wall = time.monotonic() - t0
         served = len(self.results) - n_before
         toks = sum(len(r.generated) for r in self.results) - toks_before
@@ -266,9 +279,17 @@ class ServeEngine:
         reg.counter("serve.steps").inc(self.steps_run)
         if wall > 0:
             reg.gauge("serve.tokens_per_s").set(toks / wall)
+        if self.slo is not None:
+            # SLO pass before the final report, so last_report carries the
+            # slo.alerts counter; each alert is an instant on the trace's
+            # slo-monitor lane and a watch() firing of its own
+            self.slo.check(self._latency,
+                           goodput=(toks / wall) if wall > 0 else None)
         self.last_report = reg.finalize(reg.report(meta={
             "backend": "threads", "engine": "serve", "device": str(self.device),
             "requests": served, "tokens": toks, "wall_s": wall}))
+        if self.tracer is not None:
+            self.last_trace = self.tracer.trace()
         return self.results
 
 

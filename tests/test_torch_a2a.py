@@ -386,8 +386,10 @@ def test_reduce_spec_matches_reference():
 
 
 def test_mesh_lowering_of_a_shuffle_stays_refused():
-    with pytest.raises(LoweringError, match="slice"):
-        lower(_rbk5(tcore), "mesh")
+    """The keyed program runs on one device (tests/test_torch_mesh.py);
+    over two it is multi-GPU, ROADMAP §1 item 11."""
+    with pytest.raises(LoweringError, match="item 11"):
+        lower(_rbk5(tcore), "mesh", device="cpu", devices=2)
 
 
 # -- keyed aggregation of score tensors (chip_smoke.py's phase, small) --------

@@ -185,18 +185,21 @@ def test_dead_worker_full_ring_raises_not_hangs():
         Farm(die, 1).run_and_wait(range(5_000), capacity=8)
 
 
-# -- what this slice leaves to later slices ----------------------------------
+# -- what the port leaves to later work: a mesh over more than one device ----
 @pytest.mark.parametrize("backend", ["mesh"])
 def test_later_backends_raise_lowering_error(backend):
-    with pytest.raises(LoweringError, match="slice"):
-        lower(Farm(_f, 2), backend)
+    """One device is ported; more is multi-GPU, ROADMAP §1 item 11."""
+    with pytest.raises(LoweringError, match="item 11"):
+        lower(Farm(_f, 2), backend, device="cpu", devices=2)
 
 
 @pytest.mark.parametrize("opts", [{"tune": True}, {"metrics": True},
                                   {"monitor": True}])
 def test_later_options_raise_lowering_error(opts):
-    with pytest.raises(LoweringError, match="slice"):
-        lower(Farm(_f, 2), "threads", **opts)
+    """The options work on one device, and still refuse two (the tuned
+    program plans its mesh after the pilot, at its first call)."""
+    with pytest.raises(LoweringError, match="item 11"):
+        lower(Farm(_f, 2), "mesh", device="cpu", devices=2, **opts)(range(8))
 
 
 # -- the slice end to end (tests/test_system.py) -----------------------------

@@ -8,8 +8,11 @@ their plain versions, on their edge cases; training steps of every family
 through the kernels, forward and backward, against the CPU;
 the Zamba2 smoke prefill launching both; the MoE grouped dispatch against
 its dense oracle, the smoke prefill of the moe, vlm and audio families
-through the FA kernel, and CUDA tensors crossing a procs farm on the
-host (the shared-memory ring's tensor edge).  They carry the ``gpu`` marker
+through the FA kernel, CUDA tensors crossing a procs farm on the
+host (the shared-memory ring's tensor edge), and the device backend
+``lower(.., "mesh")`` on the card: a Farm, a Feedback and a keyed
+reduction equal to the threads backend, and a device farm of SW scores
+equal to ``sw_plain``.  They carry the ``gpu`` marker
 and skip where there is no card.  This file imports neither jax nor the
 reference package, so it runs on a machine that has only the port's
 dependencies:
@@ -783,3 +786,74 @@ def test_cuda_tensors_cross_a_procs_farm_on_the_host(dev):
                 assert t.device.type == "cpu" and torch.equal(t, x.cpu())
     finally:
         pool_shutdown()
+
+
+# -- the device backend on the card -----------------------------------------
+def _f(x):
+    return x * 3 + 1
+
+
+def _step(x):
+    return x * 2 + 1
+
+
+def _until(x):
+    return x < 64
+
+
+def _mod7(x):
+    return x % 7
+
+
+def test_mesh_farm_and_feedback_on_card_equal_threads(dev):
+    """The mesh program's default device is the card: its outputs equal
+    the threads backend's, ints exactly and floats to float32 rounding."""
+    from repro_torch.core import Farm, Feedback, Pipeline, lower
+    pipe = Pipeline(Farm(_f, 2, ordered=True), Farm(_mod7, 2, ordered=True))
+    prog = lower(pipe, "mesh", metrics=True)
+    assert prog.device.type == "cuda"
+    xs = list(range(-3000, 3000, 7))
+    assert prog(xs) == lower(pipe, "threads")(xs)
+    fl = [0.37 * x for x in range(100)]
+    np.testing.assert_allclose(prog(fl), lower(pipe, "threads")(fl),
+                               rtol=1e-5, atol=1e-4)
+    fb = Feedback(_step, _until, max_trips=32)
+    xs = list(range(0, 90))
+    assert lower(fb, "mesh")(xs) == lower(fb, "threads")(xs)
+    assert prog.metrics.counter("mesh.compiles").value == 2
+
+
+@pytest.mark.parametrize("fold", ["sum", "min", "max", "count"])
+def test_mesh_reduce_by_key_on_card_equals_threads(dev, fold):
+    from repro_torch.core import lower, reduce_by_key
+    rng = np.random.default_rng(3)
+    xs = [int(v) for v in rng.integers(-5000, 5000, 3000)]
+    skel = reduce_by_key(_mod7, fold, nkeys=7)
+    assert dict(lower(skel, "mesh")(xs)) == dict(lower(skel, "threads")(xs))
+
+
+def test_mesh_sw_farm_on_card_equals_sw_plain(dev):
+    """A device Farm whose worker scores rows of padded subject residues
+    (codes >= 24 are padding) with sw_batch; column 0 of each row carries
+    its score, equal to sw_plain, and the kernel launched once."""
+    from repro_torch.core import Farm, lower
+    rng = np.random.default_rng(8)
+    query = _codes(rng, 300).to(dev)
+    prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
+    A = ops.BLOSUM50.shape[0]
+    subjects = [rng.integers(0, 20, n).astype(np.int32)
+                for n in rng.integers(2, 400, 37)]
+    padded, _ = sw.pack_subjects(subjects, A, "cpu")
+
+    def score_rows(x):
+        y = torch.zeros_like(x)
+        y[:, 0] = sw.sw_batch(prof, x.contiguous(), gap_open=10.0,
+                              gap_extend=2.0, q_len=q_len).to(torch.int32)
+        return y
+
+    before = sw.launch_count()
+    out = lower(Farm(score_rows, 2, ordered=True), "mesh")(
+        [r for r in padded.numpy()])
+    assert sw.launch_count() - before == 1
+    want = sw.sw_plain(prof, padded.to(dev), 10.0, 2.0, q_len)
+    assert [row[0] for row in out] == [int(v) for v in want.tolist()]

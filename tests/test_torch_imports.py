@@ -17,6 +17,8 @@ PORT_MODULES = [
     "repro_torch.core.mdf", "repro_torch.core.shm",
     "repro_torch.core.procgraph", "repro_torch.core.a2a",
     "repro_torch.core.stream_ops", "repro_torch.core.oocore",
+    "repro_torch.core.autotune", "repro_torch.core.monitor",
+    "repro_torch.core.dpipeline", "repro_torch.core.dfarm",
     "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
@@ -97,7 +99,8 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
 @pytest.mark.parametrize("name", ["spsc", "lockq", "obs", "sched",
                                   "skeleton", "graph", "farm", "allocator",
                                   "mdf", "procgraph", "a2a", "stream_ops",
-                                  "oocore"])
+                                  "oocore", "autotune", "monitor",
+                                  "dpipeline"])
 def test_runtime_copies_stay_plain_python(name):
     """The runtime copies import neither torch nor numpy: like the
     reference's, they are plain Python.  (``shm`` imports either only
@@ -109,7 +112,8 @@ def test_runtime_copies_stay_plain_python(name):
 @pytest.mark.parametrize("module", [
     "repro_torch.core", "repro_torch.core.procgraph", "repro_torch.core.shm",
     "repro_torch.core.a2a", "repro_torch.core.oocore",
-    "repro_torch.core.stream_ops"])
+    "repro_torch.core.stream_ops", "repro_torch.core.autotune",
+    "repro_torch.core.monitor", "repro_torch.core.dpipeline"])
 def test_runtime_import_leaves_torch_and_numpy_unloaded(module):
     """What a spawned vertex of the procs backend imports loads no torch
     and no numpy, module by module in a fresh interpreter (the
@@ -119,6 +123,30 @@ def test_runtime_import_leaves_torch_and_numpy_unloaded(module):
             f"import {module}\n"
             "bad = sorted(m for m in ('torch', 'numpy') if m in sys.modules)\n"
             "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_core_names_of_the_device_backend_load_no_torch():
+    """``import repro_torch.core`` and the names of the self-tuning
+    compile, the monitor and the mesh programs load no torch (and the
+    monitor only when touched); the device farm loads torch when first
+    touched, as a mesh program's construction does."""
+    code = ("import sys\n"
+            "import repro_torch.core as c\n"
+            "assert 'torch' not in sys.modules\n"
+            "assert 'repro_torch.core.monitor' not in sys.modules\n"
+            "from repro_torch.core import (A2AMeshProgram, MeshProgram, "
+            "TunedProgram, plan_mesh, best_factorization, pipeline_apply)\n"
+            "assert 'torch' not in sys.modules\n"
+            "assert 'repro_torch.core.monitor' not in sys.modules\n"
+            "from repro_torch.core import Monitor, analyze\n"
+            "assert 'torch' not in sys.modules\n"
+            "c.farm_map\n"
+            "assert 'torch' in sys.modules\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -6,7 +6,8 @@ threads backend), and the outputs must be equal: ordered output, GO_ON
 filtering, emitter/collector nodes, feedback loops, every scheduling
 policy, the accelerator, pooled and direct spawns, batched emit; then the
 failure semantics (a raising worker fails the run, a hung child hits the
-timeout), the options that stay refused, tracing, tensors through a farm,
+timeout), the run report and live monitor (``metrics=``, ``monitor=``),
+a mesh over two devices that stays refused, tracing, tensors through a farm,
 and no leaked ``/dev/shm`` segment.  One case per behaviour: every run
 spawns processes.  Plain nodes come from ``tests/_procs_nodes.py``, nodes
 that return the port's sentinels or take tensors from
@@ -164,14 +165,42 @@ def test_speculative_is_threads_only():
 
 
 @pytest.mark.parametrize("opt", ["metrics", "monitor"])
-def test_later_options_stay_refused_on_procs(opt):
-    with pytest.raises(LoweringError, match="slice"):
-        lower(Farm(N.f, 2), "procs", **{opt: True})
+def test_run_report_and_monitor_on_procs(opt):
+    """metrics= merges the children's telemetry into one RunReport whose
+    farm rows and meta equal the threads backend's; monitor= samples the
+    live counter boards, monotone up to the stream's length."""
+    xs = list(range(50))
+    want = [N.g(N.f(x)) for x in xs]
+    build = lambda: Pipeline(Farm(N.f, 2, ordered=True),  # noqa: E731
+                             Farm(N.g, 2, ordered=True))
+    prog = lower(build(), "procs", **{opt: True})
+    assert prog(xs) == want
+    if opt == "metrics":
+        rep, trep = prog.last_report, None
+        threads = lower(build(), "threads", metrics=True)
+        assert threads(xs) == want
+        trep = threads.last_report
+        assert sorted(rep.farms) == sorted(trep.farms) == \
+            ["ff-farm@0", "ff-farm@1"]
+        for q in rep.farms:
+            assert rep.farms[q]["tasks_collected"] == \
+                trep.farms[q]["tasks_collected"] == len(xs)
+        assert rep.meta["items_out"] == trep.meta["items_out"] == len(xs)
+        assert rep.meta["backend"] == "procs" and rep.queues
+    else:
+        tl = prog.monitor.timeline
+        assert prog.monitor.errors == 0 and tl.frames()
+        for key in ("items_out", "ff-farm@0.emitted", "ff-farm@1.collected"):
+            vals = [f["counters"][key] for f in tl.frames()
+                    if key in f["counters"]]
+            assert vals == sorted(vals) and vals[-1] == len(xs), (key, vals)
 
 
 def test_mesh_stays_refused():
-    with pytest.raises(LoweringError, match="slice"):
-        lower(Farm(N.f, 2), "mesh")
+    """The mesh program runs on one device; two are multi-GPU, ROADMAP §1
+    item 11."""
+    with pytest.raises(LoweringError, match="item 11"):
+        lower(Farm(N.f, 2), "mesh", device="cpu", devices=2)
 
 
 # -- the self-offloading accelerator ------------------------------------------

@@ -100,9 +100,39 @@ def test_serve_engine_recycles_slots():
     assert eng.pool.allocated == 6
 
 
-def test_serve_engine_refuses_slo_until_monitor_is_ported():
-    with pytest.raises(NotImplementedError, match="monitor"):
-        ServeEngine(ARCHS["phi3-mini-3.8b"].smoke(), device=CPU, slo=object())
+@pytest.mark.parametrize("breach", [True, False])
+def test_serve_engine_slo_alerts_like_the_reference(breach):
+    """slo= on both engines, the same requests: a p99 bound of 1 µs and a
+    goodput floor of 1e12 tokens/s are breached by any run, and a bound of
+    1e12 µs with a floor of 0 by none.  Each engine routes its alerts to
+    slo.events, to its own registry's slo.alerts counter and to alert
+    instants on an slo-monitor lane of engine.last_trace."""
+    from repro.core.monitor import SLOMonitor as JSLOMonitor
+    from repro_torch.core.monitor import SLOMonitor
+    lim = dict(p99_us=1.0, min_goodput=1e12) if breach else \
+        dict(p99_us=1e12, min_goodput=0.0)
+    cfg, jcfg = ARCHS["phi3-mini-3.8b"].smoke(), JARCHS["phi3-mini-3.8b"].smoke()
+    prompts = _prompts(cfg, 3)
+    runs = {}
+    for name, slo, eng in (
+            ("port", SLOMonitor(**lim), None),
+            ("reference", JSLOMonitor(**lim), None)):
+        eng = (ServeEngine(cfg, max_batch=2, max_len=64, seed=0, device=CPU,
+                           slo=slo) if name == "port" else
+               JServeEngine(jcfg, max_batch=2, max_len=64, slo=slo))
+        assert slo.registry is eng.metrics
+        R = Request if name == "port" else JRequest
+        for i, p in enumerate(prompts):
+            eng.submit(R(rid=i, prompt=p, max_new=3))
+        assert len(eng.run()) == 3
+        alerts = [e for e in eng.last_trace.events() if e[0] == "alert"]
+        assert "slo-monitor" in eng.last_trace.qualnames()
+        assert [e[3] for e in alerts] == slo.events
+        assert eng.last_report.counters.get("slo.alerts", 0) == len(slo.events)
+        runs[name] = [(e["event"], e["signal"], e["threshold"])
+                      for e in slo.events]
+    assert runs["port"] == runs["reference"]
+    assert len(runs["port"]) == (2 if breach else 0)
 
 
 def test_serve_engine_refuses_audio_like_the_reference():
