@@ -37,7 +37,11 @@ kernel launch counts set to 0 just before it and read just after:
 * the self-tuning compile and the live monitor around the chunked search,
   a service level on the serving run, and the device backend
   (``lower(.., "mesh")``, one program per skeleton on the card) over the
-  search's rows and subjects.
+  search's rows and subjects;
+* the same mesh programs over 4 rank processes sharing the card (gloo,
+  staged through the host: the machine has one card), the device
+  channels between them, and ring attention at Phi-3-mini's attention
+  shape with every hop through the flash-attention kernel.
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -112,18 +116,38 @@ Phases, each on lines of its own; any failed check exits non-zero:
       (max, count) of phase 11's 524,288 rows equal to
       ``scatter_reduce``/``bincount``, a device farm of SW scores over
       phase 4's 4096 subjects equal to its scores, and the tuned mesh plan;
-  13. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  13. multi-rank on the card: 4 rank processes on ``cuda:0`` over gloo
+      (``repro_torch.core.ranks``): (a) ``ring_send``, ``chain_send``,
+      ``RingChannel`` and ``double_buffered_ring`` of a (4096, 1024) bf16
+      block, each equal to its permutation, ms per hop; (b) ``lower(..,
+      "mesh", devices=4, transport="gloo")``: Farm∘Farm at 2000 and 2^20
+      items at factorization (1, 4) and (2, 2) and the Feedback loop, equal
+      to threads and phase 12, and the SW device farm over phase 4's
+      subjects at 4 workers (4 launches gathered from the ranks); (c) the
+      keyed max and count of phase 11's rows over 4 ranks; (d) ring
+      attention, B=1 S=16384 H=32 D=96 bf16 causal, 10 FA launches, against
+      the same ring through the plain hop in float32 (each row's relative
+      L2 error within ``RING_REL_TOL``, which three planted faults of the
+      merge must exceed), the ring's time split into its kernels and its
+      exchanges, and at S=2048 with a window of 512 against ``fa_plain``;
+      no rank process, rank store or ``/dev/shm`` entry of a rank left.
+      Its times are one card time-sliced by 4 processes, not multi-GPU
+      speeds;
+  14. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 import contextlib
+import functools
 import gc
+import glob
 import json
 import os
 import re
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -256,11 +280,22 @@ def gcups(qlen, db_cells, seconds):
     return qlen * db_cells / (seconds * 1e9)
 
 
+def _stop_children():
+    """Kill every process this script started that is still running (the
+    rank processes, pooled vertex hosts): ``os._exit`` skips the pools'
+    ``atexit`` hooks."""
+    import multiprocessing as mp
+    procgraph = sys.modules.get("repro_torch.core.procgraph")
+    if procgraph is not None:     # retire the idle pooled hosts first
+        procgraph.pool_shutdown()
+    for p in mp.active_children():
+        p.kill()
+        p.join(timeout=10)
+
+
 def _watchdog(signum, frame):
     print(f"FAIL: chip_smoke exceeded {TIME_LIMIT_S} s", flush=True)
-    procgraph = sys.modules.get("repro_torch.core.procgraph")
-    if procgraph is not None:     # os._exit skips the pool's atexit hook
-        procgraph.pool_shutdown()
+    _stop_children()
     os._exit(1)
 
 
@@ -2925,10 +2960,11 @@ def device_backend(dev, sw, ops, core, ctx, runs, db, queries):
                          core.Farm(minus7, 2, ordered=True))
     mesh = core.lower(pipe, "mesh", trace=True, metrics=True)
     threads = core.lower(pipe, "threads")
+    wants = {}                                    # phase 13 holds its ranks to these
     for n in MESH_SIZES:
         xs = list(range(n))
         t0 = time.perf_counter()
-        want = threads(xs)
+        want = wants[n] = threads(xs)
         t_threads = time.perf_counter() - t0
         t0 = time.perf_counter()
         got = mesh(xs)
@@ -2964,6 +3000,7 @@ def device_backend(dev, sw, ops, core, ctx, runs, db, queries):
     got = fbm(xs)
     t_mesh = time.perf_counter() - t0
     check(got == want, "mesh Feedback differs from threads")
+    wants["feedback"] = want
     print(f"mesh Feedback (2x+1 while < 64, max_trips 32) at {FEEDBACK_ITEMS} "
           f"items: equal to threads; threads {t_threads:.4f} s, mesh first "
           f"call {t_mesh:.4f} s", flush=True)
@@ -3038,7 +3075,7 @@ def device_backend(dev, sw, ops, core, ctx, runs, db, queries):
           f"{torch.cuda.device_count()} card(s); profile "
           + "; ".join(f"{sp.kind}@{sp.path} {sp.service_us:.3f} us"
                       for sp in tp.profile.stages), flush=True)
-    return counts["sw"]
+    return counts["sw"], wants
 
 
 def phase_device_backend(dev, sw, ops, core, ctx, main, runs, db, queries,
@@ -3046,17 +3083,438 @@ def phase_device_backend(dev, sw, ops, core, ctx, main, runs, db, queries,
     """Phase 12: (a) the tuned, monitored chunked search and a monitored
     keyed reduction on procs; (b) ran in phase 7 (serving with ``slo=``);
     (c) the device backend on the card.  Returns the SW launches of the
-    tuned search and of the device farm."""
+    tuned search and of the device farm, and (c)'s threads outputs."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     tuned = tuned_search(dev, sw, core, ctx, main, smi_line)
     t_a = time.perf_counter() - t0
     t0 = time.perf_counter()
-    farm = device_backend(dev, sw, ops, core, ctx, runs, db, queries)
+    farm, wants = device_backend(dev, sw, ops, core, ctx, runs, db, queries)
     t_c = time.perf_counter() - t0
     print(f"phase 12: (a) {t_a:.1f} s, (c) {t_c:.1f} s; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return tuned, farm
+    return tuned, farm, wants
+
+
+# phase 13: the mesh programs, the channels and ring attention over 4 rank
+# processes sharing the card (a machine with one card: NCCL
+# refuses two ranks on one card, so the exchanges go over gloo through the
+# host; their times are one card time-sliced by 4 processes)
+RANKS = 4
+RANK_TRANSPORT = "gloo"
+RANK_LABEL = (f"one card time-sliced by {RANKS} rank processes, exchanges "
+              f"over {RANK_TRANSPORT} staged through the host: not a "
+              f"multi-GPU speed")
+CHANNEL_SHAPE = (4096, 1024)  # a bf16 block of 8 MiB
+CHANNEL_REPS = 5              # timed ring hops
+RING_ARCH = "phi3-mini-3.8b"  # its attention: 32 heads (and kv heads) of 96
+RING_B, RING_S = 1, 16384     # sequence-sharded 4096 a rank
+RING_SEED = 13
+RING_CHECK = dict(S=2048, window=512)   # the windowed check against fa_plain
+# The ring against float32 references on the same bf16 inputs: for every
+# (batch, position, head) row, ||ring - reference|| / ||reference|| over the
+# head dim.  A sound ring differs by the bf16 rounding of each hop's output
+# and of the result (2^-9 of a row, relative, at most 2^-8 of each entry);
+# the limit sits between the sound readings and the planted faults'.
+RING_REL_TOL = 1e-2
+# Planted faults of the merge, each a substitution in ring_attention.py's
+# text, run in the ranks beside the real module: each must fail the limit.
+RING_FAULTS = {
+    "merge in base e": (
+        "torch.exp2(m - m_new), torch.exp2(m_h - m_new) * l_h",
+        "torch.exp(m - m_new), torch.exp(m_h - m_new) * l_h"),
+    "q_offset hops weighted 10% high": (
+        "torch.exp2(m_h - m_new) * l_h",
+        "torch.exp2(m_h - m_new) * l_h * (1.1 if h else 1.0)"),
+    "the hop from one rank back dropped": (
+        "if causal and src > me:", "if causal and (src > me or h == 1):"),
+}
+
+
+def _channel_block(rank, gen, dev):
+    """Rank ``rank``'s block of generation ``gen``: integers below 251,
+    exact in bf16, different for every (rank, generation)."""
+    n = CHANNEL_SHAPE[0] * CHANNEL_SHAPE[1]
+    v = (torch.arange(n, device=dev) * 7 + rank * 31 + gen * 13) % 251
+    return v.to(torch.bfloat16).reshape(CHANNEL_SHAPE)
+
+
+def channel_job(ctx):
+    """Phase 13 (a), in each rank: every channel of ``dchannel`` against
+    the permutation it must give, bit for bit, then timed ring hops."""
+    from repro_torch.core import dchannel
+    grp, r, n, dev = ctx.world_group, ctx.rank, ctx.world, ctx.device
+    left = (r - 1) % n
+    x = _channel_block(r, 0, dev)
+    ok = {"ring_send": torch.equal(dchannel.ring_send(x, grp),
+                                   _channel_block(left, 0, dev))}
+    want = _channel_block(r - 1, 0, dev) if r else torch.zeros_like(x)
+    ok["chain_send"] = torch.equal(dchannel.chain_send(x, grp), want)
+    chan = dchannel.RingChannel(grp, capacity=2)
+    slots, arrived = chan.init(x), []
+    for gen in range(4):
+        got, slots = chan.step(slots, _channel_block(r, gen, dev))
+        arrived.append(got)
+    want = [x, x, _channel_block(left, 0, dev), _channel_block(left, 1, dev)]
+    ok["RingChannel(capacity=2)"] = all(torch.equal(a, w)
+                                        for a, w in zip(arrived, want))
+    ok["double_buffered_ring"] = dchannel.double_buffered_ring(
+        lambda hop, carry, block: (carry and torch.equal(
+            block, _channel_block((r - hop) % n, 0, dev)), None), x, True, grp)
+    torch.cuda.synchronize()
+    staged, t0 = ctx.staged, time.perf_counter()
+    y = x
+    for _ in range(CHANNEL_REPS):
+        y = dchannel.ring_send(y, grp)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / CHANNEL_REPS
+    ok["timed ring"] = torch.equal(
+        y, _channel_block((r - CHANNEL_REPS) % n, 0, dev))
+    return ok, ms, (ctx.staged - staged) / CHANNEL_REPS
+
+
+def score_rows_on_rank(prof, q_len, go, x):
+    """The device farm's worker in a rank: column 0 of each row of padded
+    residues becomes its SW score (``prof`` arrives on the host)."""
+    from repro_torch.kernels import smith_waterman as sw
+    y = torch.zeros_like(x)
+    y[:, 0] = sw.sw_batch(prof.to(x.device), x.contiguous(), gap_open=go,
+                          gap_extend=GAP_EXTEND, q_len=q_len).to(torch.int32)
+    return y
+
+
+def _ring_inputs(S, dev):
+    """q, k, v of the ring at sequence length S, the same in every process
+    (a seeded generator on the card)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[RING_ARCH]
+    gen = torch.Generator(device=dev).manual_seed(RING_SEED)
+    return [torch.randn((RING_B, S, h, cfg.head_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+            for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+
+
+def _ring_error(got, want):
+    """``got`` against the float32 ``want``, both (B, S, H, D): the largest
+    relative L2 error of a row over the head dim, and the two sums of
+    squares of the relative Frobenius error (summed over the ranks)."""
+    dd = (got.float() - want).square().sum(-1)
+    rr = want.square().sum(-1)
+    return {"row_max": float((dd / rr.clamp_min(1e-30)).sqrt().max()),
+            "dd": float(dd.sum()), "rr": float(rr.sum())}
+
+
+def _ring_shard(ctx, S):
+    """This rank's q, k, v shards of the ring at sequence length S."""
+    s = S // ctx.world
+    own = slice(ctx.rank * s, (ctx.rank + 1) * s)
+    return [t[:, own].contiguous() for t in _ring_inputs(S, ctx.device)]
+
+
+def _ring_reference(ra, q, k, v, grp, window):
+    """The ring through the plain hop in float32 on the bf16 inputs
+    (timed): the reference every FA ring is held against."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ra.ring_attention_plain(q.float(), k.float(), v.float(), group=grp,
+                                  causal=True, window=window)
+    torch.cuda.synchronize()
+    return ref, (time.perf_counter() - t0) * 1e3
+
+
+def ring_attention_job(ctx, S, window, keep_out):
+    """Phase 13 (d), in each rank: this rank's shard through
+    ``ring_attention`` (the FA kernel each hop), timed and held against
+    the float32 plain-hop ring; with ``keep_out`` the output shard too."""
+    import importlib
+    ra = importlib.import_module("repro_torch.parallel.ring_attention")
+    q, k, v = _ring_shard(ctx, S)
+    grp = ctx.world_group
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ra.ring_attention(q, k, v, group=grp, causal=True, window=window)
+    torch.cuda.synchronize()
+    res = {"ms": (time.perf_counter() - t0) * 1e3, "staged": ctx.staged,
+           "finite": bool(torch.isfinite(out).all())}
+    ref, res["plain_ms"] = _ring_reference(ra, q, k, v, grp, window)
+    res.update(_ring_error(out, ref))
+    if keep_out:
+        res["out"] = out.cpu()
+    return res
+
+
+def _faulty_ring_module(ra, fault):
+    """``ring_attention.py`` with the planted fault ``fault`` substituted
+    into its text, as a module of its own beside the real one."""
+    import inspect
+    import types
+    old, new = RING_FAULTS[fault]
+    src = inspect.getsource(ra)
+    if src.count(old) != 1:
+        raise RuntimeError(f"planted fault {fault!r}: {old!r} is not once "
+                           f"in {ra.__file__}")
+    mod = types.ModuleType(ra.__name__ + "_planted")
+    mod.__package__ = ra.__package__
+    exec(compile(src.replace(old, new), ra.__file__, "exec"), mod.__dict__)
+    return mod
+
+
+def ring_probe_job(ctx, S):
+    """Phase 13 (d) beside the main path, in each rank: the planted faults
+    held against the float32 reference, and the FA ring's time split into
+    its parts: this rank's hops through the kernel with no exchange, and
+    the K/V circulating with no body."""
+    import importlib
+    from repro_torch.core import dchannel
+    ra = importlib.import_module("repro_torch.parallel.ring_attention")
+    q, k, v = _ring_shard(ctx, S)
+    grp, s, me = ctx.world_group, S // ctx.world, ctx.rank
+    ref, _ = _ring_reference(ra, q, k, v, grp, None)
+    res = {"faults": {}}
+    for fault in RING_FAULTS:
+        out = _faulty_ring_module(ra, fault)._ring_fa(
+            q, k, v, group=grp, causal=True, window=None)
+        res["faults"][fault] = _ring_error(out, ref)
+    del ref
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for src in range(me + 1):
+        ra._fa_hop(q, k, v, causal=True, window=None, q_offset=(me - src) * s)
+    torch.cuda.synchronize()
+    res["kernels_ms"] = (time.perf_counter() - t0) * 1e3
+    staged = ctx.staged
+    t0 = time.perf_counter()
+    dchannel.double_buffered_ring(lambda h, c, b: (c, None), (k, v), None,
+                                  grp)
+    torch.cuda.synchronize()
+    res["exchange_ms"] = (time.perf_counter() - t0) * 1e3
+    res["exchange_staged"] = ctx.staged - staged
+    return res
+
+
+def _rank_hosts():
+    import multiprocessing as mp
+    return [p.name for p in mp.active_children() if p.name.startswith("rank-")]
+
+
+def _rank_stores():
+    return set(glob.glob(os.path.join(tempfile.gettempdir(), "repro-ranks-*")))
+
+
+def _rank_leftovers(pids, stores_before):
+    """What the phase's rank processes could leave behind: a ``/dev/shm``
+    entry whose name carries one of their pids, and a rank store
+    directory made during the phase (entries of other processes on the
+    machine are not looked at)."""
+    pat = re.compile(r"(?<!\d)(%s)(?!\d)" % "|".join(map(str, pids)))
+    shm = [e for e in os.listdir("/dev/shm") if pids and pat.search(e)]
+    return sorted(shm) + sorted(_rank_stores() - stores_before)
+
+
+def phase_ring_attention(pool, dev, where, label):
+    """Phase 13 (d): ring attention at Phi-3-mini's attention width over
+    the pool's ranks, held against the float32 plain-hop ring, the
+    planted faults, the time split, and the windowed check.  Returns the
+    FA launches the ranks made on the main path."""
+    reset_counts()                                # --- counted window ---
+    pool.reset_counts()
+    t0 = time.perf_counter()
+    res = pool.run(ring_attention_job, RING_S, None, False)
+    wall = time.perf_counter() - t0
+    here, there = read_counts(), dict(pool.launches)   # --- end of window ---
+    n_fa = RANKS * (RANKS + 1) // 2
+    check(there["fa"] == n_fa and not any(here.values()),
+          f"ring attention launched {there} in the ranks and {here} here; "
+          f"expected fa {n_fa} in the ranks (1 + 2 + ... + {RANKS})")
+    row_max = max(r["row_max"] for r in res)
+    fro = (sum(r["dd"] for r in res) / sum(r["rr"] for r in res)) ** 0.5
+    check(all(r["finite"] for r in res) and row_max <= RING_REL_TOL,
+          f"ring attention through the FA kernel differs from the float32 "
+          f"plain-hop ring: a row by {row_max:.3e} relative (limit "
+          f"{RING_REL_TOL})")
+    fa_launches = there["fa"]
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[RING_ARCH]
+    print(f"phase 13 (d) ring attention ({where}): {RING_ARCH}'s attention, "
+          f"B={RING_B} S={RING_S} (sequence-sharded {RING_S // RANKS} a rank) "
+          f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.head_dim} bf16 "
+          f"causal; {fa_launches} FA launches gathered from the ranks; "
+          f"against the float32 plain-hop ring on the same bf16 inputs: "
+          f"worst row relative L2 {row_max:.3e} (limit {RING_REL_TOL}), "
+          f"relative Frobenius {fro:.3e}; ms by rank, FA ring "
+          f"{json.dumps([round(r['ms'], 3) for r in res])}, float32 plain "
+          f"ring {json.dumps([round(r['plain_ms'], 3) for r in res])}; host "
+          f"moves by rank {json.dumps([r['staged'] for r in res])}; call "
+          f"wall {wall:.3f} s; {label}", flush=True)
+    probes = pool.run(ring_probe_job, RING_S)
+    for fault in RING_FAULTS:
+        f_max = max(p["faults"][fault]["row_max"] for p in probes)
+        f_fro = (sum(p["faults"][fault]["dd"] for p in probes)
+                 / sum(p["faults"][fault]["rr"] for p in probes)) ** 0.5
+        check(f_max > RING_REL_TOL, f"planted fault '{fault}' passes the "
+              f"ring check ({f_max:.3e} <= {RING_REL_TOL})")
+        print(f"phase 13 (d) planted fault '{fault}' ({where}): worst row "
+              f"relative L2 {f_max:.3e} against the limit {RING_REL_TOL} "
+              f"(fails it, as it must), relative Frobenius {f_fro:.3e}",
+              flush=True)
+    print(f"phase 13 (d) ring attention's time split ({where}): ms by rank, "
+          f"its hops through the FA kernel with no exchange "
+          f"{json.dumps([round(p['kernels_ms'], 3) for p in probes])}, the "
+          f"K/V circulating with no body "
+          f"{json.dumps([round(p['exchange_ms'], 3) for p in probes])} "
+          f"({probes[0]['exchange_staged']} host moves a rank); the FA ring "
+          f"above {json.dumps([round(r['ms'], 3) for r in res])}; {label}",
+          flush=True)
+    S, window = RING_CHECK["S"], RING_CHECK["window"]
+    res = pool.run(ring_attention_job, S, window, True)
+    got = torch.cat([r["out"] for r in res], dim=1).to(dev)
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.transpose(1, 2).float() for t in _ring_inputs(S, dev))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = fa.fa_plain(q, k, v, causal=True, window=window).transpose(1, 2)
+    err = _ring_error(got, want)
+    ring_max = max(r["row_max"] for r in res)
+    check(err["row_max"] <= RING_REL_TOL and ring_max <= RING_REL_TOL,
+          f"windowed ring attention at S={S}: a row differs by "
+          f"{err['row_max']:.3e} from the float32 fa_plain and by "
+          f"{ring_max:.3e} from the float32 plain-hop ring (limit "
+          f"{RING_REL_TOL})")
+    print(f"phase 13 (d) ring attention at S={S}, window {window} ({where}): "
+          f"hops two and three ranks back see no key (zero weight in the "
+          f"merge); worst row relative L2 against the float32 fa_plain over "
+          f"the whole sequence {err['row_max']:.3e}, against the float32 "
+          f"plain-hop ring {ring_max:.3e} (limit {RING_REL_TOL}); {label}",
+          flush=True)
+    return fa_launches
+
+
+def phase_ranks(dev, sw, ops, core, ctx, runs, db, queries, wants, smi_line):
+    """Phase 13: (a) the device channels, (b) ``lower(.., "mesh",
+    devices=4, transport="gloo")`` — Farm∘Farm at (1, 4) and (2, 2), a
+    Feedback loop, the SW device farm — (c) the keyed mesh program, and
+    (d) ring attention at Phi-3-mini's attention shape, all over 4 rank
+    processes on the card.  Returns the kernel launches the ranks made on
+    the counted paths (the SW farm's and the ring's)."""
+    from repro_torch.core import ranks
+    free_device_memory()
+    t_phase = time.perf_counter()
+    stores_before = _rank_stores()
+    where = f"world {RANKS}, transport {RANK_TRANSPORT}"
+    label = f"{RANK_LABEL}; card {smi_line}"
+    pool = ranks.pool(RANKS, transport=RANK_TRANSPORT)
+    check(pool.devices == ["cuda:0"] * RANKS,
+          f"ranks on {pool.devices}, expected all on cuda:0")
+    print(f"phase 13 ({where}): {RANKS} ranks on {pool.devices} ready in "
+          f"{pool.ready_s:.2f} s (spawn, torch import, CUDA context, "
+          f"process group); {label}", flush=True)
+
+    # (a) the channels
+    t0 = time.perf_counter()
+    out = pool.run(channel_job)
+    wall = time.perf_counter() - t0
+    for r, (ok, _, _) in enumerate(out):
+        bad = [k for k, v in ok.items() if not v]
+        check(not bad, f"rank {r}: {bad} gave the wrong permutation")
+    mib = CHANNEL_SHAPE[0] * CHANNEL_SHAPE[1] * 2 / 2 ** 20
+    print(f"phase 13 (a) channels ({where}): ring_send, chain_send, "
+          f"RingChannel(capacity=2), double_buffered_ring of a "
+          f"{CHANNEL_SHAPE} bf16 block ({mib:.0f} MiB) equal to their "
+          f"permutations bit for bit on every rank; ms per ring hop, "
+          f"staging included, by rank "
+          f"{json.dumps([round(o[1], 3) for o in out])} with "
+          f"{out[0][2]:.0f} host moves a hop a rank; call wall {wall:.3f} s; "
+          f"{label}", flush=True)
+
+    # (b) the skeleton mesh program over the ranks
+    pipe = core.Pipeline(core.Farm(times3_plus1, 2, ordered=True),
+                         core.Farm(minus7, 2, ordered=True))
+    for fact in ((1, RANKS), (2, RANKS // 2)):
+        prog = core.lower(pipe, "mesh", devices=RANKS,
+                          transport=RANK_TRANSPORT, factorization=fact,
+                          trace=True)
+        walls = []
+        for n in MESH_SIZES:
+            xs = list(range(n))
+            t0 = time.perf_counter()
+            got = prog(xs)
+            walls.append(time.perf_counter() - t0)
+            check(got == wants[n], f"mesh Farm∘Farm {fact} over {RANKS} "
+                  f"ranks at {n} items differs from threads and phase 12")
+        print(f"phase 13 (b) mesh Farm∘Farm (3x+1, x-7) factorization "
+              f"{fact} ({where}): equal to threads and to phase 12's "
+              f"one-device mesh at " + ", ".join(
+                  f"{n} items (call wall {w:.4f} s)"
+                  for n, w in zip(MESH_SIZES, walls))
+              + f"; lane {json.dumps(_lane_spans(prog))}; {label}",
+              flush=True)
+    fb = core.Feedback(double_plus1, below64, max_trips=32)
+    xs = [i % 61 for i in range(FEEDBACK_ITEMS)]
+    fbm = core.lower(fb, "mesh", devices=RANKS, transport=RANK_TRANSPORT)
+    t0 = time.perf_counter()
+    check(fbm(xs) == wants["feedback"],
+          f"mesh Feedback over {RANKS} ranks differs from threads")
+    print(f"phase 13 (b) mesh Feedback at {FEEDBACK_ITEMS} items ({where}, "
+          f"{fbm.n_worker} workers): equal to threads; call wall "
+          f"{time.perf_counter() - t0:.4f} s; {label}", flush=True)
+
+    # (b) the SW device farm: phase 4's database, one row a subject
+    A = ops.BLOSUM50.shape[0]
+    prof, q_len = ops.build_profile(queries[KEYED_Q], ops.BLOSUM50.to(dev))
+    go = REGIMES[0][0]
+    padded, _ = sw.pack_subjects(db, A, "cpu")
+    farm = core.lower(core.Farm(functools.partial(
+        score_rows_on_rank, prof.cpu(), q_len, go), RANKS, ordered=True),
+        "mesh", devices=RANKS, transport=RANK_TRANSPORT)
+    rows_in = list(padded.numpy())
+    reset_counts()                                # --- counted window ---
+    pool.reset_counts()
+    t0 = time.perf_counter()
+    out = farm(rows_in)
+    wall = time.perf_counter() - t0
+    here, there = read_counts(), dict(pool.launches)   # --- end of window ---
+    check(there["sw"] == RANKS and not any(here.values()),
+          f"SW device farm over {RANKS} ranks launched {there} in the ranks "
+          f"and {here} here; expected sw {RANKS} in the ranks, one each")
+    check([float(r[0]) for r in out] == runs[(KEYED_Q, REGIMES[0][1])]["scores"],
+          f"SW device farm over {RANKS} ranks differs from phase 4's scores")
+    sw_launches = there["sw"]
+    print(f"phase 13 (b) SW device farm ({where}): {len(db)} subjects, "
+          f"q={KEYED_Q} {REGIMES[0][1]}, {farm.n_worker} workers: equal to "
+          f"phase 4's scores bit for bit; {sw_launches} SW launches gathered "
+          f"from the ranks; call wall {wall:.4f} s; {label}", flush=True)
+
+    # (c) the keyed mesh program over the ranks
+    rows = ctx["rows"]
+    items = (rows[1].long() * KEY_BITS + rows[0].long()).tolist()
+    for fold in ("max", "count"):
+        prog = core.lower(core.reduce_by_key(bucket_of, fold, nkeys=MESH_KEYS),
+                          "mesh", devices=RANKS, transport=RANK_TRANSPORT)
+        t0 = time.perf_counter()
+        out = prog(items)
+        wall = time.perf_counter() - t0
+        got = {k: (v // KEY_BITS if fold == "max" else v) for k, v in out}
+        check(len(got) == len(out) and got == ctx["want"][fold],
+              f"keyed {fold} over {RANKS} ranks differs from "
+              f"{'scatter_reduce amax' if fold == 'max' else 'bincount'}")
+        print(f"phase 13 (c) keyed {fold} over {len(items)} rows, nkeys "
+              f"{MESH_KEYS} ({where}): equal to "
+              f"{'scatter_reduce(amax)' if fold == 'max' else 'bincount'} "
+              f"over {len(got)} buckets; call wall {wall:.4f} s; {label}",
+              flush=True)
+
+    # (d) ring attention at Phi-3-mini's attention width
+    fa_launches = phase_ring_attention(pool, dev, where, label)
+
+    pids = pool.pids
+    ranks.shutdown()
+    left = _rank_leftovers(pids, stores_before)
+    check(not left, f"the ranks left behind: {left}")
+    hosts = _rank_hosts()
+    check(not hosts, f"rank processes still running: {hosts}")
+    print(f"phase 13: no rank process, rank store or /dev/shm entry of a "
+          f"rank left; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"sw": sw_launches, "fa": fa_launches}
 
 
 def main():
@@ -3102,20 +3560,23 @@ def main():
     training = phase_training(dev, fa, ssd)
     keyed_launches, keyed_ctx = phase_keyed(dev, sw, ops, core, queries,
                                             smi_line)
-    tuned_launches, farm_launches = phase_device_backend(
+    tuned_launches, farm_launches, mesh_wants = phase_device_backend(
         dev, sw, ops, core, keyed_ctx, chunked_main, runs, db, queries,
         smi_line)
+    ranked = phase_ranks(dev, sw, ops, core, keyed_ctx, runs, db, queries,
+                         mesh_wants, smi_line)
 
     main_row = next(r for r in rows if r["b"] == TIMING_CHUNK and r["q"] == 1000)
     kernels = [{
         "name": "sw", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches + chunked_launches + keyed_launches
-        + tuned_launches + farm_launches,
+        + tuned_launches + farm_launches + ranked["sw"],
         "launches_by_path": {"one-subject farm": launches,
                              "chunked search": chunked_launches,
                              "keyed aggregation": keyed_launches,
                              "tuned chunked search": tuned_launches,
-                             "device farm": farm_launches},
+                             "device farm": farm_launches,
+                             "device farm over 4 ranks": ranked["sw"]},
         "max_abs_err": worst, "exact_cases": cases,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3146,12 +3607,14 @@ def main():
                             for a, f in families.items()})
             by_path["phi3 train"] = training["fa"]
             by_path["zamba2 train"] = training["zamba2"]["counts"]["fa"]
+            by_path["ring attention over 4 ranks"] = ranked["fa"]
             shapes = model_rows["fa_shapes"]
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
-                launches_per=f"one prefill of each path and {TRAIN_STEPS} "
+                launches_per=f"one prefill of each path, {TRAIN_STEPS} "
                              f"phi3 and zamba2 train steps (forward and remat "
-                             f"recompute)",
+                             f"recompute) and one ring attention over "
+                             f"{RANKS} ranks",
                 max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes),
                                 training["bwd_row"]["forward_with_stats_err"]),
                 forward_with_stats_max_abs_err=training["bwd_row"][
@@ -3248,5 +3711,6 @@ if __name__ == "__main__":
         traceback.print_exc()
         print("FAIL: exception", flush=True)
         rc = 1
+    _stop_children()
     sys.stdout.flush()
     os._exit(rc)

@@ -2,14 +2,16 @@
 # lock-free SPSC ring, the lock-based baseline queue, the skeleton IR with
 # its three lowerings — threads (``graph``), spawned processes over
 # shared-memory SPSC rings (``procgraph``, ``shm``) and one device program
-# (``"mesh"``: ``MeshProgram``, ``A2AMeshProgram``, over ``dfarm``) — the
+# (``"mesh"``: ``MeshProgram``, ``A2AMeshProgram``, over ``dfarm``, on one
+# device or over rank processes: ``ranks``, ``dchannel``) — the
 # keyed shuffle (``a2a``) with its streaming operators (``stream_ops``)
 # and out-of-core folds (``oocore``), the self-tuning compile
 # (``autotune``), the live monitor (``monitor``), the scheduling policies
 # and the vertex tracer.  Plain Python: it imports neither torch nor
 # anything of ``repro``, so a spawned vertex process pays neither.  The
-# device farm (``dfarm``, torch) and the monitor are resolved on first
-# touch (PEP 562), so ``monitor=None`` programs never import the monitor.
+# device farm and channels (``dfarm``, ``dchannel``: torch) and the
+# monitor are resolved on first touch (PEP 562), so ``monitor=None``
+# programs never import the monitor.
 # The SPMC page pool (``allocator``) backs the serving engine's batch
 # slots, and the macro data-flow executor (``mdf``, paper Sec. 5) wraps
 # the farm.
@@ -46,6 +48,8 @@ _LAZY = {
     "BottleneckReport": ".monitor", "DriftWatcher": ".monitor",
     "Monitor": ".monitor", "SLOMonitor": ".monitor", "Timeline": ".monitor",
     "analyze": ".monitor",
+    "RingChannel": ".dchannel", "chain_send": ".dchannel",
+    "double_buffered_ring": ".dchannel", "ring_send": ".dchannel",
     "combine": ".dfarm", "dispatch": ".dfarm", "farm_map": ".dfarm",
     "farm_until": ".dfarm", "roundrobin_dest": ".dfarm",
     "best_factorization": ".dpipeline",

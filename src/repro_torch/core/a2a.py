@@ -34,8 +34,9 @@ interpreter-salted builtin ``hash``.
     worker (``key % W``), :func:`repro_torch.core.dfarm.dispatch` moves
     every row to its key's owner, and a segment reduction
     (``index_add_``/``scatter_reduce``) over the static key space folds
-    each partition.  The port runs on one device, so ``W`` is 1 and the
-    exchange is the identity; more devices are ROADMAP §1 item 11.
+    each partition.  On one device ``W`` is 1 and the exchange is the
+    identity; over ``devices > 1`` each worker is a rank process
+    (:mod:`.ranks`) and the exchange one ``all_to_all_single``.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ from . import graph as _graph
 from . import procgraph as _procgraph
 from .skeleton import (GO_ON, AllToAll, EmitMany, FnNode, KeyBatch,
                        LoweringError, Pipeline, Skeleton, Stage, _ReorderNode,
-                       _coerce_metrics, _coerce_tracer, _one_device,
-                       _tensor_callable, ff_node)
+                       _coerce_metrics, _coerce_tracer, _devices_args,
+                       _mesh_devices, _rank_plan, _tensor_callable, ff_node)
 
 __all__ = [
     "stable_hash", "KeyRouter", "build_thread_a2a", "build_proc_a2a",
@@ -527,8 +528,15 @@ class A2AMeshProgram:
     Static key space required: ``reduce.nkeys`` bounds the segment
     arrays, and ``by`` must yield integer keys in ``[0, nkeys)``; a key
     out of range is refused (checked on the device, one read a call).
-    One device (``device=``, ``None`` the card): ``devices`` above 1 is
-    ROADMAP §1 item 11 and raises.
+
+    ``devices`` (default: the CUDA cards for ``device=None``, else one)
+    sets ``W``.  On one device (``device=``, ``None`` the card) the
+    program runs in this process.  Over ``W > 1`` it runs in W rank
+    processes (:func:`~repro_torch.core.ranks.pool`, ``transport=`` as
+    there): rank w takes the w-th contiguous shard of the packed rows,
+    rows travel to rank ``key % W`` by ``all_to_all_single`` and are
+    segment-reduced there, and the segments are gathered in key order.
+    The maps and ``by`` must then be picklable.
     """
 
     backend = "mesh"
@@ -536,7 +544,8 @@ class A2AMeshProgram:
     def __init__(self, skeleton: Skeleton, *, devices: Optional[int] = None,
                  block: int = 64, capacity: Optional[int] = None,
                  grain: Optional[int] = None, trace: Any = False,
-                 metrics: Any = False, device: Any = None):
+                 metrics: Any = False, device: Any = None,
+                 transport: Optional[str] = None):
         from . import dfarm
 
         self.skeleton = skeleton
@@ -555,9 +564,16 @@ class A2AMeshProgram:
         self.kind = kind
         self.nkeys = int(red.nkeys)
         self.block = block
-        _one_device(devices)
-        self.n_worker = 1
-        self.device = dfarm.resolve_device(device)
+        self.n_worker = _mesh_devices(devices, device)
+        self.transport = transport
+        self.pool = None         # the rank processes, once started
+        if self.n_worker > 1:
+            self.rank_devices = _rank_plan(self.n_worker, device, transport,
+                                           (self.pre, self.by))
+            self.device = device
+        else:
+            self.rank_devices = None
+            self.device = dfarm.resolve_device(device)
         self._programs: Dict[Tuple[int, str], Callable] = {}
         self.tracer = _coerce_tracer(trace)
         self.metrics = _coerce_metrics(metrics)
@@ -566,9 +582,8 @@ class A2AMeshProgram:
         self._lane = None
         if self.tracer is not None:
             self._lane = self.tracer.vertex("mesh-program")
-            self._lane.instant("devices", {
-                "devices": self.n_worker, "n_stage": 1,
-                "n_worker": self.n_worker})
+            self._lane.instant("devices", _devices_args(
+                1, self.n_worker, transport))
 
     def _bucket_rows(self, n: int) -> int:
         rows = max(-(-n // self.n_worker), 1, self.block)
@@ -609,13 +624,22 @@ class A2AMeshProgram:
 
     def _program(self, rows: int, dtype: str) -> Callable:
         key = (rows, dtype)
+        if self.pool is not None and self.pool.closed:
+            self._programs.clear()   # a failed call closed the ranks: restart
         if key in self._programs:
             return self._programs[key]
         t_compile = time.monotonic()
         from . import dfarm
-        program = dfarm.keyed_program(self.pre, self.by, self.kind,
-                                      self.nkeys, self.n_worker, rows,
-                                      self.device)
+        if self.rank_devices is None:
+            program = dfarm.keyed_program(self.pre, self.by, self.kind,
+                                          self.nkeys, self.n_worker, rows,
+                                          self.device)
+        else:
+            from . import ranks
+            self.pool = ranks.pool(self.n_worker, device=self.device,
+                                   transport=self.transport)
+            program = dfarm.rank_keyed_program(self.pre, self.by, self.kind,
+                                               self.nkeys, rows, self.pool)
         if self._lane is not None:
             self._lane.span("compile", t_compile, time.monotonic(),
                             {"rows": rows, "dtype": dtype})

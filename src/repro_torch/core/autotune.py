@@ -560,10 +560,12 @@ class TunedProgram:
     def _build(self, prof: Profile) -> None:
         self.profile = prof
         if self.backend == "mesh":
-            # the port's mesh program holds one device unless devices=
-            # says otherwise, so plan for what it will hold
-            plan = plan_mesh(prof, self.skeleton,
-                             self.opts.get("devices", 1))
+            # plan for the devices the mesh program will span (devices=,
+            # else the cards for the default device); transport= and the
+            # other options pass through to it
+            from .skeleton import _mesh_devices
+            plan = plan_mesh(prof, self.skeleton, _mesh_devices(
+                self.opts.get("devices"), self.opts.get("device")))
             merged = {**plan, **self.opts}
             self.tuned = lower(self.skeleton, "mesh", **merged)
             self.tuned_skeleton = self.skeleton

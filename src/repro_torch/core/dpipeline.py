@@ -5,11 +5,13 @@ mesh each *stage* is a device group along the ``stage`` axis and each edge
 a collective-permute; microbatches stream through the chain, and with S
 stages and M microbatches the utilisation is M / (M + S - 1).
 
-The port's copy of ``repro.core.dpipeline``'s pure helpers, which the
+The port's copy of ``repro.core.dpipeline``: the pure helpers, which the
 mesh lowering (:class:`~repro_torch.core.skeleton.MeshProgram`) and the
-autotuner's planner (:func:`~repro_torch.core.autotune.plan_mesh`) read.
-Plain Python.  :func:`pipeline_apply` streams microbatches between
-devices, which is multi-GPU (ROADMAP §1 item 11): it raises until then.
+autotuner's planner (:func:`~repro_torch.core.autotune.plan_mesh`) read,
+and :func:`pipeline_apply`, which streams microbatches between the rank
+processes of a stage group.  This module stays plain Python: the tensor
+body of :func:`pipeline_apply` lives in :mod:`.dchannel`, imported when
+it is first called.
 """
 from __future__ import annotations
 
@@ -67,11 +69,30 @@ def negotiate_stage_axis(n_stages: int, n_devices: int):
 
 
 def pipeline_apply(stage_fn: Callable[[Any, Any], Any], stage_params: Any,
-                   microbatches: Any, **kw: Any) -> Any:
-    """Stream microbatches through a chain of stages, one device group
-    per stage.  Every hop is a transfer between devices: multi-GPU,
-    ROADMAP §1 item 11, not yet ported (on one device the mesh program
-    runs its stages in order and never calls this)."""
-    raise NotImplementedError(
-        "pipeline_apply streams microbatches between devices: multi-GPU, "
-        "ROADMAP §1 item 11, not yet ported to repro_torch")
+                   microbatches: Any, *, group: Any,
+                   collect: str = "psum") -> Any:
+    """Stream ``microbatches`` through the stage chain.
+
+    Must be called inside a rank job, with ``group`` the stage
+    :class:`~repro_torch.core.ranks.Group` (the reference's ``axis_name``)
+    and ``stage_params`` this rank's own stage's parameters.
+
+    Args:
+      stage_fn: ``y = stage_fn(params_local, x)`` — one stage's compute.
+      stage_params: this stage's parameter shard.
+      microbatches: ``(M, mb, ...)`` tensor, the same on every stage;
+        stage 0 reads microbatch t at tick t, later stages ignore it and
+        consume their inbound SPSC slot (a ``chain_send`` edge) instead.
+      collect: ``"psum"`` (default) sums the last stage's emit over the
+        stage group (inactive stages contribute zeros), so every stage
+        holds the result; ``"local"`` returns each stage's raw emit.
+
+    Returns ``(M, mb, ...)``: the outputs of the last stage in microbatch
+    order.  Differentiable: the edges send the cotangent back up the
+    chain, and the ``psum`` passes it through as the transpose of the
+    reference's replicated output does.  Without grad mode a stage skips
+    its inactive ticks (every rank of a stage row skips alike)."""
+    if collect not in ("psum", "local"):
+        raise ValueError(f"collect must be 'psum' or 'local', got {collect!r}")
+    from .dchannel import _pipeline
+    return _pipeline(stage_fn, stage_params, microbatches, group, collect)

@@ -22,14 +22,14 @@ Execution is a separate step, :func:`lower`:
 
 ``lower(skel, backend="mesh")``
     produces a :class:`MeshProgram`: the whole skeleton as **one** device
-    program over ``(rows, d)`` tensors on one device (a CUDA card by
-    default, ``device="cpu"`` for the plain path), the stage chain run in
-    order inside it with ``dfarm.farm_map`` for each farm and
-    ``dfarm.farm_until`` for each wrap-around loop — no host SPSC hop
-    between stages.  Skeletons holding an :class:`AllToAll` compile to the
-    keyed-shuffle program (:class:`~repro_torch.core.a2a.A2AMeshProgram`).
-    More than one device is multi-GPU (ROADMAP §1 item 11), not yet
-    ported: ``devices > 1`` raises :class:`LoweringError`.
+    program over ``(rows, d)`` tensors (a CUDA card by default,
+    ``device="cpu"`` for the plain path), with ``dfarm.farm_map`` for each
+    farm and ``dfarm.farm_until`` for each wrap-around loop — no host SPSC
+    hop between stages.  Over ``devices > 1`` the program runs in as many
+    rank processes (:mod:`.ranks`), a ``(stage, worker)`` grid of them,
+    farms exchanging over their stage row and the pipeline streaming down
+    the worker columns.  Skeletons holding an :class:`AllToAll` compile to
+    the keyed-shuffle program (:class:`~repro_torch.core.a2a.A2AMeshProgram`).
 
 This is the port's copy of the reference runtime (``repro.core.skeleton``):
 the same IR, the same ordered outputs on every backend, the same
@@ -1182,10 +1182,6 @@ BACKENDS["threads"] = ThreadProgram
 # ---------------------------------------------------------------------------
 # mesh lowering: one device program for the whole skeleton
 # ---------------------------------------------------------------------------
-#: what a mesh program over more than one device waits for
-MULTI_GPU = "multi-GPU, ROADMAP §1 item 11, not yet ported to repro_torch"
-
-
 @dataclass
 class _MeshStage:
     # NOTE: no per-stage worker count — mesh parallelism is always the
@@ -1243,34 +1239,74 @@ def _skeleton_grain(skel: Skeleton) -> Optional[int]:
     return getattr(skel, "grain", None)
 
 
-def _one_device(devices: Optional[int],
-                factorization: Optional[Tuple[int, int]] = None) -> None:
-    """Refuse a mesh over more than one device: the exchanges between
-    devices are item 11's."""
-    if devices is not None and devices > 1:
+def _mesh_devices(devices: Optional[int], device: Any) -> int:
+    """The devices a mesh program spans: ``devices=`` when given, else
+    the CUDA cards for the default device (``device=None``, as the
+    reference takes ``jax.devices()``), else one."""
+    if devices is not None:
+        if devices < 1:
+            raise LoweringError(f"devices must be at least 1, got {devices}")
+        return devices
+    if device is None:
+        from .dfarm import device_count
+        return max(1, device_count())
+    return 1
+
+
+def _devices_args(n_stage: int, n_worker: int,
+                  transport: Optional[str]) -> Dict[str, Any]:
+    """The ``devices`` instant of a mesh program's trace lane."""
+    args: Dict[str, Any] = {"devices": n_stage * n_worker,
+                            "n_stage": n_stage, "n_worker": n_worker}
+    if n_stage * n_worker > 1:
+        args["transport"] = transport or "nccl"
+    return args
+
+
+def _rank_plan(world: int, device: Any, transport: Optional[str],
+               fns: Any) -> List[str]:
+    """Check that a program over ``world`` rank processes can run: the
+    layout and transport (:func:`~repro_torch.core.ranks.plan_ranks`), and
+    that its functions pickle — each rank process imports them by name.
+    Returns the ranks' devices."""
+    import pickle
+    from .ranks import plan_ranks
+    devices, _ = plan_ranks(world, device, transport)
+    try:
+        pickle.dumps(fns)
+    except (pickle.PicklingError, AttributeError, TypeError) as e:
         raise LoweringError(
-            f"devices={devices}: a mesh program over more than one device "
-            f"is {MULTI_GPU}; it runs on one device")
-    if factorization is not None \
-            and factorization[0] * factorization[1] > 1:
-        raise LoweringError(
-            f"factorization {tuple(factorization)} spans more than one "
-            f"device, which is {MULTI_GPU}")
+            f"a mesh program over {world} devices runs its stage functions "
+            f"in rank processes, so they must be picklable (module-level "
+            f"functions, functools.partial, or ff_node subclasses — not "
+            f"lambdas or closures): {e!r}") from e
+    return devices
 
 
 class MeshProgram:
     """Mesh lowering: the whole skeleton as ONE device program.
 
-    The reference negotiates a 2-D ``(stage, worker)`` mesh from the
-    device count; the port runs on one device (``device=``: ``None`` is
-    the CUDA card and raises without one, ``"cpu"`` the plain path), so
-    the mesh is ``(1, 1)`` and the stage chain runs in order inside one
-    program — each farm through ``dfarm.farm_map`` (dispatch, worker,
-    ordered combine), each wrap-around loop through ``dfarm.farm_until``
-    (a host loop that reads the continue flag once a trip), with no host
-    hop between stages.  ``devices=`` above 1, or a ``factorization``
-    over more than one device, is multi-GPU (ROADMAP §1 item 11) and
-    raises :class:`LoweringError`.
+    A 2-D ``(stage, worker)`` mesh is negotiated from the device count
+    (``devices=``, default the CUDA cards; ``dpipeline.
+    negotiate_stage_axis``), or taken from ``factorization=`` under the
+    reference's rules.  On one device (``device=``: ``None`` is the CUDA
+    card and raises without one, ``"cpu"`` the plain path) the stage
+    chain runs in order inside one program — each farm through
+    ``dfarm.farm_map`` (dispatch, worker, ordered combine), each
+    wrap-around loop through ``dfarm.farm_until`` (a host loop that reads
+    the continue flag once a trip), with no host hop between stages.
+
+    Over more devices the program runs in one rank process per device
+    (:func:`~repro_torch.core.ranks.pool`, shared by the process's mesh
+    programs; ``transport=`` as :func:`~repro_torch.core.ranks.
+    plan_ranks`: more ranks than cards need ``transport="gloo"``).  Each
+    worker column takes its contiguous shard of the packed rows.  With
+    one stage row the chain runs in order, each farm dispatching over the
+    row's workers; with one row per stage, each row runs its own stage
+    and microbatches of ``grain`` rows stream down the columns through
+    ``pipeline_apply``.  The rank processes import the stage functions by
+    name, so they must be picklable (a lambda raises
+    :class:`LoweringError` here, at construction).
 
     Items are packed host-side into a ``(rows, d)`` array (scalars become
     ``d=1``), padded to a row bucket (power of two floored at ``block``,
@@ -1281,8 +1317,10 @@ class MeshProgram:
     closed over the plan, counted in ``mesh.compiles``.
 
     Observability as the reference's: ``trace=`` gives a ``mesh-program``
-    lane with a ``devices`` instant and ``compile``/``call`` spans;
-    ``metrics=`` the ``mesh.calls``, ``mesh.items``, ``mesh.devices``,
+    lane with a ``devices`` instant (with the transport over ranks) and
+    ``compile``/``call`` spans (the first compile over ranks includes
+    starting them); ``metrics=`` the ``mesh.calls``, ``mesh.items``,
+    ``mesh.devices``,
     ``mesh.call_us`` and ``mesh.compiles`` metrics; ``monitor=`` one
     :meth:`~repro_torch.core.monitor.Monitor.program_frame` per call.
     """
@@ -1294,7 +1332,8 @@ class MeshProgram:
                  block: int = 64,
                  factorization: Optional[Tuple[int, int]] = None,
                  trace: Any = False, metrics: Any = False,
-                 monitor: Any = None, device: Any = None):
+                 monitor: Any = None, device: Any = None,
+                 transport: Optional[str] = None):
         from . import dfarm, dpipeline
 
         self.skeleton = skeleton
@@ -1303,11 +1342,11 @@ class MeshProgram:
         self.grain = grain if grain is not None else _skeleton_grain(skeleton)
         self.capacity = capacity
         self.block = block
-        _one_device(devices, factorization)
-        ndev = 1
+        ndev = _mesh_devices(devices, device)
         if factorization is not None:
-            # autotune override (plan_mesh): only (1, 1) is expressible on
-            # one device; the reference's rules name what else is wrong
+            # autotune override (plan_mesh): the pipelined path still
+            # requires n_stage == len(stages), so only (1, ndev) or
+            # (len(stages), ndev // len(stages)) are legal here.
             n_stage, n_worker = factorization
             if n_stage not in (1, len(self.stages)) \
                     or n_stage * n_worker > ndev or n_worker < 1:
@@ -1318,7 +1357,16 @@ class MeshProgram:
         else:
             self.n_stage, self.n_worker = dpipeline.negotiate_stage_axis(
                 len(self.stages), ndev)
-        self.device = dfarm.resolve_device(device)
+        world = self.n_stage * self.n_worker
+        self.transport = transport
+        self.pool = None         # the rank processes, once started
+        if world > 1:
+            self.rank_devices = _rank_plan(world, device, transport,
+                                           self.stages)
+            self.device = device
+        else:
+            self.rank_devices = None
+            self.device = dfarm.resolve_device(device)
         self._programs: Dict[Tuple[int, int, str], Callable] = {}
         # observability: a mesh run has no host vertices, so the trace is
         # program-level — one "mesh-program" lane carrying a devices
@@ -1335,9 +1383,8 @@ class MeshProgram:
         self._lane = None
         if self.tracer is not None:
             self._lane = self.tracer.vertex("mesh-program")
-            self._lane.instant("devices", {
-                "devices": self.n_stage * self.n_worker,
-                "n_stage": self.n_stage, "n_worker": self.n_worker})
+            self._lane.instant("devices", _devices_args(
+                self.n_stage, self.n_worker, transport))
 
     # -- host-side packing ---------------------------------------------------
     def _bucket_rows(self, n: int) -> int:
@@ -1396,12 +1443,23 @@ class MeshProgram:
     # -- the single device program -------------------------------------------
     def _program(self, rows: int, d: int, dtype: str) -> Callable:
         key = (rows, d, dtype)
+        if self.pool is not None and self.pool.closed:
+            self._programs.clear()   # a failed call closed the ranks: restart
         if key in self._programs:
             return self._programs[key]
         t_compile = time.monotonic()
         from . import dfarm
-        program = dfarm.chain_program(self.stages, self.n_worker,
-                                      self.capacity, self.device)
+        if self.rank_devices is None:
+            program = dfarm.chain_program(self.stages, self.n_worker,
+                                          self.capacity, self.device)
+        else:
+            from . import ranks
+            self.pool = ranks.pool(self.n_stage * self.n_worker,
+                                   device=self.device,
+                                   transport=self.transport)
+            program = dfarm.rank_chain_program(
+                self.stages, self.n_stage, self.n_worker, self.capacity,
+                self.grain, rows, self.pool)
         self._programs[key] = program
         if self._lane is not None:
             self._lane.span("compile", t_compile, time.monotonic(),

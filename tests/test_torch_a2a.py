@@ -386,10 +386,15 @@ def test_reduce_spec_matches_reference():
 
 
 def test_mesh_lowering_of_a_shuffle_stays_refused():
-    """The keyed program runs on one device (tests/test_torch_mesh.py);
-    over two it is multi-GPU, ROADMAP §1 item 11."""
-    with pytest.raises(LoweringError, match="item 11"):
+    """The keyed program runs on one device (tests/test_torch_mesh.py) or
+    over rank processes (tests/test_torch_mesh_ranks.py); CPU ranks need
+    an explicit ``transport="gloo"``, and with it the program spans two
+    workers."""
+    with pytest.raises(LoweringError, match='transport="gloo"'):
         lower(_rbk5(tcore), "mesh", device="cpu", devices=2)
+    prog = lower(_rbk5(tcore), "mesh", device="cpu", devices=2,
+                 transport="gloo")
+    assert prog.n_worker == 2 and prog.rank_devices == ["cpu", "cpu"]
 
 
 # -- keyed aggregation of score tensors (chip_smoke.py's phase, small) --------

@@ -400,14 +400,14 @@ def test_plan_mesh_one_device_and_a2a_guard(saved_profiles):
 
 def test_mesh_factorization_validation():
     """The reference refuses (3, 1) for two stages and (2, 3) on four
-    devices; on one device the port refuses both, and every mesh over
-    more than one device names ROADMAP §1 item 11."""
+    devices; so does the port, with the reference's reason, before any
+    rank starts."""
     for fact in ((3, 1), (2, 3)):
         with pytest.raises(jcore.LoweringError):
             jcore.lower(farm2(jcore), "mesh", devices=4, factorization=fact)
-        with pytest.raises(LoweringError, match="item 11"):
+        with pytest.raises(LoweringError, match="not expressible on 4 devices"):
             lower(farm2(tcore), "mesh", devices=4, factorization=fact,
-                  device=CPU)
+                  device=CPU, transport="gloo")
     with pytest.raises(LoweringError, match="not expressible"):
         lower(farm2(tcore), "mesh", factorization=(1, 0), device=CPU)
 

@@ -185,20 +185,22 @@ def test_dead_worker_full_ring_raises_not_hangs():
         Farm(die, 1).run_and_wait(range(5_000), capacity=8)
 
 
-# -- what the port leaves to later work: a mesh over more than one device ----
+# -- a mesh over more than one device: rank processes, explicit transport ----
 @pytest.mark.parametrize("backend", ["mesh"])
 def test_later_backends_raise_lowering_error(backend):
-    """One device is ported; more is multi-GPU, ROADMAP §1 item 11."""
-    with pytest.raises(LoweringError, match="item 11"):
+    """More than one device runs in rank processes; CPU ranks need an
+    explicit ``transport="gloo"`` (tests/test_torch_mesh_ranks.py)."""
+    with pytest.raises(LoweringError, match='transport="gloo"'):
         lower(Farm(_f, 2), backend, device="cpu", devices=2)
 
 
 @pytest.mark.parametrize("opts", [{"tune": True}, {"metrics": True},
                                   {"monitor": True}])
 def test_later_options_raise_lowering_error(opts):
-    """The options work on one device, and still refuse two (the tuned
-    program plans its mesh after the pilot, at its first call)."""
-    with pytest.raises(LoweringError, match="item 11"):
+    """The options work on one device, and over two CPU ranks still need
+    the transport named (the tuned program plans its mesh after the
+    pilot, at its first call)."""
+    with pytest.raises(LoweringError, match='transport="gloo"'):
         lower(Farm(_f, 2), "mesh", device="cpu", devices=2, **opts)(range(8))
 
 

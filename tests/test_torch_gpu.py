@@ -12,7 +12,10 @@ through the FA kernel, CUDA tensors crossing a procs farm on the
 host (the shared-memory ring's tensor edge), and the device backend
 ``lower(.., "mesh")`` on the card: a Farm, a Feedback and a keyed
 reduction equal to the threads backend, and a device farm of SW scores
-equal to ``sw_plain``.  They carry the ``gpu`` marker
+equal to ``sw_plain``; rank processes on the card (two sharing it over
+gloo: a ring hop, a device farm over two workers, ring attention through
+the FA kernel against the plain hop; NCCL where there are two cards).
+They carry the ``gpu`` marker
 and skip where there is no card.  This file imports neither jax nor the
 reference package, so it runs on a machine that has only the port's
 dependencies:
@@ -857,3 +860,89 @@ def test_mesh_sw_farm_on_card_equals_sw_plain(dev):
     assert sw.launch_count() - before == 1
     want = sw.sw_plain(prof, padded.to(dev), 10.0, 2.0, q_len)
     assert [row[0] for row in out] == [int(v) for v in want.tolist()]
+
+
+# -- rank processes on the card (repro_torch.core.ranks) ----------------------
+def test_ranks_share_the_card_over_gloo(dev):
+    """Two rank processes on cuda:0 over gloo (one card: NCCL refuses two
+    ranks on it): a bf16 ring hop staged through the host (one move out
+    and one back a rank), and a 2-worker SW device farm through the mesh
+    program, equal to ``sw_plain``, with one launch in each rank."""
+    import functools
+
+    import _torch_rank_jobs as J
+    from repro_torch.core import Farm, lower, ranks
+    p = ranks.RankPool(2, device="cuda:0", transport="gloo")
+    try:
+        out = p.run(J.card_ring_hop)
+    finally:
+        p.close()
+    for r, (where, got, staged) in enumerate(out):
+        assert where == "cuda" and (got == (r - 1) % 2).all() and staged == 2
+    rng = np.random.default_rng(8)
+    prof, q_len = ops.build_profile(_codes(rng, 300).to(dev),
+                                    ops.BLOSUM50.to(dev))
+    subjects = [rng.integers(0, 20, n).astype(np.int32)
+                for n in rng.integers(2, 400, 37)]
+    padded, _ = sw.pack_subjects(subjects, ops.BLOSUM50.shape[0], "cpu")
+    prog = lower(Farm(functools.partial(J.score_rows, prof.cpu(), q_len), 2),
+                 "mesh", devices=2, transport="gloo")
+    try:
+        got = prog([r for r in padded.numpy()])
+        assert prog.pool.launches["sw"] == 2
+    finally:
+        ranks.shutdown()
+    want = sw.sw_plain(prof, padded.to(dev), 10.0, 2.0, q_len)
+    assert [row[0] for row in got] == [int(v) for v in want.tolist()]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+def test_ring_attention_kernel_hops_equal_the_plain_hop_on_card(dev, causal,
+                                                                window):
+    """Two ranks on the card, bf16, grouped-query: every hop through the
+    FA kernel (a later rank's block skipped under ``causal``), merged by
+    the statistics, against the same ring through the plain hop in
+    float32 on the same bf16 inputs: each row within 1e-2 relative L2
+    over the head dim (bf16 rounds a row by about 2^-9); with a window of
+    40 over shards of 64 the last rows of the hop one rank back see no
+    key."""
+    import _torch_rank_jobs as J
+    from repro_torch.core import ranks
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((1, 128, 8, 64), generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((1, 128, 2, 64), generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    p = ranks.RankPool(2, device="cuda:0", transport="gloo")
+    try:
+        kern = p.run(J.ring_attention, q, k, v, causal, window, "fa")
+        plain = p.run(J.ring_attention, q.float(), k.float(), v.float(),
+                      causal, window, "plain")
+        assert p.launches["fa"] == (3 if causal else 4)
+    finally:
+        p.close()
+    assert [c for _, c in kern] == ([[0], [0, 64]] if causal
+                                    else [[0, -64], [0, 64]])
+    got = np.concatenate([o for o, _ in kern], axis=1)
+    want = np.concatenate([o for o, _ in plain], axis=1)
+    assert np.isfinite(got).all()
+    rel = np.sqrt(((got - want) ** 2).sum(-1) / (want ** 2).sum(-1))
+    assert rel.max() <= 1e-2, rel.max()
+
+
+def test_nccl_ranks_with_a_card_each(dev):
+    """The NCCL transport, one card a rank: a ring hop and an all-reduce
+    on the cards, nothing staged through the host.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card of its own for every rank; this "
+                    "machine has fewer than 2 cards")
+    import _torch_rank_jobs as J
+    from repro_torch.core import ranks
+    p = ranks.RankPool(2, transport="nccl")
+    try:
+        out = p.run(J.nccl_ring)
+    finally:
+        p.close()
+    for r, (got, total, staged) in enumerate(out):
+        assert (got == (r - 1) % 2).all() and (total == 1).all()
+        assert staged == 0

@@ -19,6 +19,8 @@ PORT_MODULES = [
     "repro_torch.core.stream_ops", "repro_torch.core.oocore",
     "repro_torch.core.autotune", "repro_torch.core.monitor",
     "repro_torch.core.dpipeline", "repro_torch.core.dfarm",
+    "repro_torch.core.ranks", "repro_torch.core.dchannel",
+    "repro_torch.parallel", "repro_torch.parallel.ring_attention",
     "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
@@ -173,3 +175,22 @@ def test_every_port_module_is_covered():
             or m.startswith("repro_torch.core.") or m == "repro_torch.kernels"
             or m in ("repro_torch.kernels._build", "repro_torch.launch")}
     assert found - skip <= set(PORT_MODULES), sorted(found - skip - set(PORT_MODULES))
+
+
+def test_device_channels_load_torch_only_when_touched():
+    """``pipeline_apply`` keeps ``dpipeline`` plain Python; the channels
+    (``ring_send`` and the rest, through ``repro_torch.core``) bring torch
+    and the rank layer in on first touch."""
+    code = ("import sys\n"
+            "import repro_torch.core as c\n"
+            "from repro_torch.core import pipeline_apply\n"
+            "assert 'torch' not in sys.modules\n"
+            "assert 'repro_torch.core.ranks' not in sys.modules\n"
+            "c.ring_send, c.RingChannel, c.double_buffered_ring\n"
+            "assert 'torch' in sys.modules\n"
+            "assert 'repro_torch.core.ranks' in sys.modules\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -6,8 +6,10 @@ device, one device each: the mesh cases of ``tests/test_skeleton.py``,
 packages; the device farm (``repro_torch.core.dfarm``) against the
 reference's ``dfarm`` under a one-device ``shard_map``; the row-bucket
 rule; and the refusals, the reference's (int32, dtype, capacity, keys,
-host-only features) and the port's own (more than one device is multi-GPU,
-ROADMAP §1 item 11).
+host-only features) and the port's own (more than one device on the CPU
+needs an explicit ``transport="gloo"``; a worker axis of more than one
+needs its rank group).  Programs over rank processes are held in
+``tests/test_torch_mesh_ranks.py``.
 
 Integer results and key→fold maps are compared exactly.  Float streams are
 float32 in both programs; XLA may contract ``3x + 1`` into one fused
@@ -206,16 +208,28 @@ def test_grain_from_the_skeleton_aligns_rows():
     assert m(list(range(10))) == j(list(range(10)))
 
 
-# -- what waits for multi-GPU (ROADMAP §1 item 11) ---------------------------
+# -- more than one device: rank processes (tests/test_torch_mesh_ranks.py) ----
 @pytest.mark.parametrize("opts", [{"devices": 2}, {"devices": 8},
                                   {"factorization": (1, 2)},
                                   {"factorization": (2, 1)}])
 def test_more_than_one_device_is_refused_naming_item_11(opts):
-    with pytest.raises(LoweringError, match="item 11"):
-        lower(_pipe(tcore), "mesh", device=CPU, **opts)
+    """More than one device runs in rank processes: on the CPU they need
+    ``transport="gloo"`` (NCCL has no CPU ranks, and nothing switches the
+    transport silently); a factorization over more devices than the one
+    of ``device="cpu"`` is not expressible, as in the reference."""
     if "devices" in opts:
-        with pytest.raises(LoweringError, match="item 11"):
-            lower(_rbk5(tcore), "mesh", device=CPU, **opts)
+        for build in (_pipe, _rbk5):
+            with pytest.raises(LoweringError, match='transport="gloo"'):
+                lower(build(tcore), "mesh", device=CPU, **opts)
+            prog = lower(build(tcore), "mesh", device=CPU, transport="gloo",
+                         **opts)
+            assert prog.n_worker * getattr(prog, "n_stage", 1) == \
+                opts["devices"]
+            assert prog.pool is None     # the ranks start at the first call
+    else:
+        with pytest.raises(LoweringError,
+                           match="not expressible on 1 devices"):
+            lower(_pipe(tcore), "mesh", device=CPU, **opts)
 
 
 def test_one_device_is_the_default_and_factorization_1_1_is_allowed():
@@ -226,15 +240,18 @@ def test_one_device_is_the_default_and_factorization_1_1_is_allowed():
 
 
 def test_exchanges_over_more_than_one_worker_wait_for_item_11():
+    """A worker axis of more than one is a rank group inside a rank job
+    (``tests/test_torch_dchannel.py``); a bare count above one names no
+    ranks to exchange with, and ``pipeline_apply`` needs its stage group."""
     x = torch.zeros(4, 1)
     dest = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="worker Group"):
         dfarm.dispatch(x, dest, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="worker Group"):
         dfarm.farm_map(N.f, x, dest, 2, 4, backend="ring")
     with pytest.raises(ValueError, match="unknown dispatch backend"):
         dfarm.dispatch(x, dest, 1, 4, backend="smoke-signals")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="group"):
         dpipeline.pipeline_apply(lambda p, v: v, None, x)
 
 

@@ -197,9 +197,9 @@ def test_run_report_and_monitor_on_procs(opt):
 
 
 def test_mesh_stays_refused():
-    """The mesh program runs on one device; two are multi-GPU, ROADMAP §1
-    item 11."""
-    with pytest.raises(LoweringError, match="item 11"):
+    """The mesh program over two devices runs in rank processes, and on
+    the CPU it needs the transport named (tests/test_torch_mesh_ranks.py)."""
+    with pytest.raises(LoweringError, match='transport="gloo"'):
         lower(Farm(N.f, 2), "mesh", device="cpu", devices=2)
 
 
