@@ -129,11 +129,25 @@ Phases, each on lines of its own; any failed check exits non-zero:
       the same ring through the plain hop in float32 (each row's relative
       L2 error within ``RING_REL_TOL``, which three planted faults of the
       merge must exceed), the ring's time split into its kernels and its
-      exchanges, and at S=2048 with a window of 512 against ``fa_plain``;
-      no rank process, rank store or ``/dev/shm`` entry of a rank left.
+      exchanges, and at S=2048 with a window of 512 against ``fa_plain``.
       Its times are one card time-sliced by 4 processes, not multi-GPU
       speeds;
-  14. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  14. the sharded model on the same 4 ranks as a 2×2 (data × model) mesh
+      (``repro_torch.parallel``): (a) ``ef_int8_psum`` of a (3072, 8192)
+      f32 leaf a rank within the reference's bounds; (b) Phi-3-mini-3.8B at
+      full width, 2 layers: the bf16 loss (4 × 2048) within rtol 3e-3 of
+      one device, the f32 gradients (2 × 512) gathered with ``gather_tree``
+      within 1e-3 of each leaf's max of the one-device ones, and two
+      planted faults (``SHARD_FAULTS``) that must fail that check; (c)
+      Mixtral-8x7B at full width, 1 layer: the MoE block through
+      ``local_gather``, ``a2a`` and ``ring`` with nothing dropped, each row
+      within 2e-2 relative L2 of the one-device dropless dispatch, and the
+      loss; (d) Mamba2-130M whole: the bf16 loss and its SSD forward and
+      backward launches; (e) ``train(mesh=make_test_mesh(2, 2))`` for 3
+      steps against one-device ``train``; FA and SSD launches gathered from
+      the ranks.  Then no rank process, rank store or ``/dev/shm`` entry of
+      a rank left.  Its times too are one card shared by 4 processes;
+  15. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -3506,15 +3520,443 @@ def phase_ranks(dev, sw, ops, core, ctx, runs, db, queries, wants, smi_line):
     # (d) ring attention at Phi-3-mini's attention width
     fa_launches = phase_ring_attention(pool, dev, where, label)
 
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # phase 14 on the same ranks
+    sharded = phase_sharded_model(pool, dev, label)
+
     pids = pool.pids
     ranks.shutdown()
     left = _rank_leftovers(pids, stores_before)
     check(not left, f"the ranks left behind: {left}")
     hosts = _rank_hosts()
     check(not hosts, f"rank processes still running: {hosts}")
-    print(f"phase 13: no rank process, rank store or /dev/shm entry of a "
+    print(f"phases 13-14: no rank process, rank store or /dev/shm entry of a "
           f"rank left; {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"sw": sw_launches, "fa": fa_launches}
+    return {"sw": sw_launches, "fa": fa_launches, "sharded": sharded}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the sharded model over the 4 rank processes on the card
+# ---------------------------------------------------------------------------
+# A (data 2, model 2) mesh of the same 4 ranks sharing cuda:0 over gloo
+# (NCCL refuses two ranks on one card): the models at full width, depth
+# cut.  One card time-sliced by 4 processes, exchanges staged through the
+# host: no time here is a multi-GPU speed.
+SHARD_MESH = (2, 2)
+SHARD_SEED = 0                # init_params' seed, the same in every process
+SHARD_RTOL = 3e-3             # a sharded loss against the one-device loss
+SHARD_GRAD_TOL = TRAIN_GRAD_TOL   # phase 10's rule: worst leaf, of its max
+SHARD_MOE_TOL = 2e-2          # row-wise relative L2 of the MoE output (bf16)
+EF_SHAPE = (3072, 8192)       # a Phi-3 MLP matrix, f32, on each rank
+EF_REPS = 3
+SHARD_PHI3 = dict(arch="phi3-mini-3.8b", layers=2, loss=(4, 2048),
+                  grads=(2, 512))
+SHARD_MIXTRAL = dict(arch="mixtral-8x7b", layers=1, tokens=(4, 1024))
+SHARD_MAMBA2 = dict(arch="mamba2-130m", loss=(4, 1024))
+SHARD_TRAIN = dict(steps=3, batch=4, seq=1024)
+# Planted faults, each a substitution in a module's text, executed into the
+# module inside the ranks for one run of (b)'s gradient check and undone
+# after it: each must fail the check.
+SHARD_FAULTS = {
+    "data-group reduce of replicated leaves left out": (
+        "repro_torch.launch.steps",
+        "else psum_compat(g, group), grads, specs)", "else g, grads, specs)"),
+    "model-region entry's backward sum left out": (
+        "repro_torch.parallel.context",
+        "return _sum(grad, ctx.group), None", "return grad, None"),
+}
+_STEP_MS = []                 # a rank's train-step times, read after (e)
+
+
+def _shard_cfg(arch, layers=None, **over):
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[arch]
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg.replace(**over)
+
+
+def _shard_batch(cfg, B, S, dev, mc=None):
+    """SyntheticLM seed 0's first batch on ``dev``: this rank's rows under
+    the mesh context ``mc``, else all of it."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.parallel import rules
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg, B, S)(0).items()}
+    if mc is not None:
+        batch = rules.shard_tree(batch, rules.batch_shardings(mc, cfg, B))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """The module of ``fault`` with its substitution executed into it (its
+    functions resolve their globals there), undone on exit."""
+    if fault is None:
+        yield
+        return
+    import importlib
+    import inspect
+    name, old, new = SHARD_FAULTS[fault]
+    mod = importlib.import_module(name)
+    src = inspect.getsource(mod)
+    if src.count(old) != 1:
+        raise RuntimeError(f"planted fault {fault!r}: {old!r} is not once in "
+                           f"{mod.__file__}")
+    exec(compile(src.replace(old, new), mod.__file__, "exec"), mod.__dict__)
+    try:
+        yield
+    finally:
+        exec(compile(src, mod.__file__, "exec"), mod.__dict__)
+
+
+def _mesh_ctx():
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.context import mesh_context
+    return mesh_context(make_test_mesh(*SHARD_MESH))
+
+
+def _local_params(mc, cfg, dev):
+    """This rank's shards of init_params(cfg, SHARD_SEED) (drawn whole on
+    the card, then cut), with the peak memory counter reset after."""
+    from repro_torch.models import init_params
+    from repro_torch.parallel import rules
+    plan = rules.param_shardings(mc, cfg)
+    local = rules.shard_tree(init_params(cfg, SHARD_SEED, device=dev), plan)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return local, plan
+
+
+def ef_job(rctx, shape, reps):
+    """Phase 14 (a), in each rank: ``ef_int8_psum`` over the 4 ranks of a
+    seeded f32 gradient leaf of ``shape`` a rank, timed over ``reps``
+    calls after one, against the exact mean."""
+    from repro_torch.optim import ef_int8_psum
+    dev = rctx.device
+    gens = [torch.Generator(device=dev).manual_seed(100 + r)
+            for r in range(rctx.world)]
+    mine = torch.randn(shape, generator=gens[rctx.rank], device=dev)
+    res = torch.zeros(shape, device=dev)
+    grp = rctx.world_group
+    out, r2 = ef_int8_psum({"g": mine}, {"g": res}, grp)       # warm-up
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, r2 = ef_int8_psum({"g": mine}, {"g": res}, grp)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    exact = torch.zeros(shape, device=dev)
+    scale = 0.0
+    for r in range(rctx.world):
+        g = mine if r == rctx.rank else torch.randn(
+            shape, generator=gens[r], device=dev)
+        exact += g / rctx.world
+        scale = max(scale, float(g.abs().max()))
+    return {"err": float((out["g"] - exact).abs().max()), "scale": scale,
+            "resid": float(r2["g"].abs().max()), "ms": ms,
+            "staged": rctx.staged // (reps + 1)}
+
+
+def sharded_model_job(rctx, cfg, B, S, grads, fault=None):
+    """Phase 14 (b) and (d), in each rank: ``loss_fn`` of this rank's
+    shards and rows (with ``grads`` also ``loss_and_grads``, the gradients
+    gathered to rank 0), timed; ``fault`` planted for the run."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+    from repro_torch.tree import tree_map
+    dev = rctx.device
+    with _planted(fault), _mesh_ctx() as mc:
+        local, plan = _local_params(mc, cfg, dev)
+        batch = _shard_batch(cfg, B, S, dev, mc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if grads:
+            loss, _, g = steps.loss_and_grads(local, batch, cfg)
+        else:
+            with torch.no_grad():
+                loss, _ = M.loss_fn(local, batch, cfg)
+        torch.cuda.synchronize()
+        res = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+               "staged": rctx.staged,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if grads:
+            full = rules.gather_tree(g, plan)
+            if rctx.rank == 0:
+                res["grads"] = tree_map(lambda t: t.cpu(), full)
+    return res
+
+
+def sharded_moe_job(rctx, cfg, B, S):
+    """Phase 14 (c), in each rank: ``_ffn_part`` of Mixtral's first layer
+    over the mesh through each MoE dispatch (nothing dropped), then the
+    sharded ``loss_fn``; rank 0 returns the output rows gathered over the
+    data group."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+    from repro_torch.parallel.context import fsdp_gather
+    dev = rctx.device
+    res = {"outs": {}, "ms": {}}
+    with _mesh_ctx() as mc:
+        local, _ = _local_params(mc, cfg, dev)
+        block = {k: v for k, v in M._layers(local["blocks"])[0].items()
+                 if k in ("moe", "norm2")}
+        specs = M._attn_block_specs(cfg, mc.mp_size)
+        specs = {k: specs[k] for k in block}
+        rows = rules.to_shardings(mc, ("dp", None, None))
+        x = rows.shard(_moe_input(cfg, B, S, dev))
+        with torch.no_grad():
+            for backend in ("local_gather", "a2a", "ring"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _ = M._ffn_part(fsdp_gather(block, specs), x,
+                                     cfg.replace(moe_backend=backend))
+                torch.cuda.synchronize()
+                res["ms"][backend] = (time.perf_counter() - t0) * 1e3
+                out = rows.gather(out)
+                if rctx.rank == 0:
+                    res["outs"][backend] = out.cpu()
+            del out
+            res["peak_ffn_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            batch = _shard_batch(cfg, B, S, dev, mc)
+            res["loss"] = float(M.loss_fn(local, batch, cfg)[0])
+        res["staged"] = rctx.staged
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def _moe_input(cfg, B, S, dev):
+    """The MoE block's seeded input: (B, S, d) bf16 activations."""
+    gen = torch.Generator(device=dev).manual_seed(SHARD_SEED + 7)
+    return torch.randn((B, S, cfg.d_model), generator=gen,
+                       device=dev).to(cfg.param_dtype)
+
+
+class StepTimer:
+    """``wrap_step`` for ``train``: each step timed (synchronised) into
+    the rank's ``_STEP_MS``."""
+
+    def __call__(self, step_fn):
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*a)
+            torch.cuda.synchronize()
+            _STEP_MS.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+
+def step_times_job(rctx, reset):
+    """The rank's train-step times and peak memory (with ``reset``: clear
+    both first)."""
+    if reset:
+        _STEP_MS.clear()
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(rctx.device)
+        return None
+    return list(_STEP_MS), torch.cuda.max_memory_allocated(rctx.device) / 1e9
+
+
+def _row_rel(got, want):
+    """The largest relative L2 error of a row (over the last dim)."""
+    dd = (got.float() - want.float()).square().sum(-1)
+    rr = want.float().square().sum(-1)
+    return float((dd / rr.clamp_min(1e-30)).sqrt().max())
+
+
+def phase_sharded_model(pool, dev, label):
+    """Phase 14: the sharded model over the 4 ranks as a 2×2 mesh — (a)
+    ``ef_int8_psum``, (b) Phi-3-mini (2 layers) loss and gradients with
+    two planted faults, (c) Mixtral-8x7B's MoE block (1 layer) through the
+    three dispatches, (d) Mamba2-130M whole, (e) ``train(mesh=)``.
+    Returns the kernel launches the ranks made on the counted paths."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    where = f"mesh {SHARD_MESH[0]}x{SHARD_MESH[1]} (data x model) of {RANKS} ranks"
+    launches = {}
+
+    # (a) ef_int8_psum
+    out = pool.run(ef_job, EF_SHAPE, EF_REPS)
+    for r, o in enumerate(out):
+        check(o["err"] < o["scale"] / 32 and o["resid"] <= o["scale"] / 64,
+              f"ef_int8_psum rank {r}: error {o['err']} (limit scale/32 = "
+              f"{o['scale'] / 32}), residual {o['resid']} (limit "
+              f"{o['scale'] / 64})")
+    print(f"phase 14 (a) ef_int8_psum ({where}, over all {RANKS} ranks): a "
+          f"{EF_SHAPE} f32 leaf a rank, mean error "
+          f"{max(o['err'] for o in out):.4e} < scale/32 = "
+          f"{out[0]['scale'] / 32:.4e}, residual "
+          f"{max(o['resid'] for o in out):.4e} <= scale/64; ms per call by "
+          f"rank {json.dumps([[round(m, 3) for m in o['ms']] for o in out])}"
+          f"; {out[0]['staged']} host moves a call a rank; {label}",
+          flush=True)
+
+    # (b) Phi-3-mini at full width, 2 layers
+    run = SHARD_PHI3
+    cfg = _shard_cfg(run["arch"], run["layers"])
+    B, S = run["loss"]
+    params = init_params(cfg, SHARD_SEED, device=dev)
+    with torch.no_grad():
+        want = float(loss_fn(params, _shard_batch(cfg, B, S, dev), cfg)[0])
+    del params
+    free_device_memory()
+    pool.reset_counts()
+    out = pool.run(sharded_model_job, cfg, B, S, False)
+    fa_fwd = pool.launches["fa"]
+    got = out[0]["loss"]
+    check(all(o["loss"] == got for o in out), "the ranks' losses differ")
+    check(abs(got - want) <= SHARD_RTOL * abs(want),
+          f"sharded {cfg.name} bf16 loss {got} vs one device {want}")
+    print(f"phase 14 (b) {cfg.name} full width, {cfg.n_layers} layers, bf16 "
+          f"loss {B} x {S} ({where}): {got:.6f} against one device "
+          f"{want:.6f} (rtol {abs(got - want) / abs(want):.3e}, limit "
+          f"{SHARD_RTOL}); ms by rank {json.dumps([round(o['ms'], 1) for o in out])}"
+          f", host moves {out[0]['staged']} a rank, peak GB by rank "
+          f"{json.dumps([round(o['peak_gb'], 3) for o in out])}; FA forward "
+          f"launches {fa_fwd} from the ranks; {label}", flush=True)
+
+    cfg32 = cfg.replace(dtype="float32")
+    B, S = run["grads"]
+    params = init_params(cfg32, SHARD_SEED, device=dev)
+    _, _, wgrads = loss_and_grads(params, _shard_batch(cfg32, B, S, dev), cfg32)
+    want_g = [w.cpu() for w in tree_leaves(wgrads)]
+    del params, wgrads
+    free_device_memory()
+    pool.reset_counts()
+    out = pool.run(sharded_model_job, cfg32, B, S, True)
+    counts = dict(pool.launches)
+    sound = _worst_leaf(tree_leaves(out[0]["grads"]), want_g)
+    del out
+    check(counts["fa"] > 0 and counts["fa_bwd"] > 0,
+          f"the sharded Phi-3 runs launched {counts} in the ranks")
+    check(sound <= SHARD_GRAD_TOL,
+          f"sharded f32 gradients vs one device: {sound} > {SHARD_GRAD_TOL}")
+    launches["fa"] = fa_fwd + counts["fa"]
+    launches["fa_bwd"] = counts["fa_bwd"]
+    faults = {}
+    for fault in SHARD_FAULTS:
+        out = pool.run(sharded_model_job, cfg32, B, S, True, fault)
+        faults[fault] = _worst_leaf(tree_leaves(out[0]["grads"]), want_g)
+        del out
+    del want_g
+    weakest = min(faults, key=faults.get)
+    print(f"phase 14 (b) {cfg.name} f32 gradients {B} x {S} ({where}), "
+          f"gathered with gather_tree: worst leaf max |diff| / max |g| "
+          f"{sound:.3e} (limit {SHARD_GRAD_TOL}); FA forward / backward "
+          f"launches from the ranks {counts['fa']} / {counts['fa_bwd']}; "
+          f"planted faults: " + ", ".join(f"'{k}' {v:.3e}" for k, v in
+                                          faults.items())
+          + f"; weakest '{weakest}' {faults[weakest]:.3e}", flush=True)
+    for fault, err in faults.items():
+        check(err > SHARD_GRAD_TOL, f"planted fault {fault!r} passed the "
+              f"gradient check ({err} <= {SHARD_GRAD_TOL})")
+
+    # (c) Mixtral-8x7B at full width, 1 layer, forward
+    run = SHARD_MIXTRAL
+    cfg = _shard_cfg(run["arch"], run["layers"])
+    cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)  # nothing drops
+    B, S = run["tokens"]
+    params = init_params(cfg, SHARD_SEED, device=dev)
+    blk = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = _moe_input(cfg, B, S, dev)
+    with torch.no_grad():
+        h = rms_norm(x, params["blocks"]["norm2"][0], cfg.norm_eps)
+        tokens = h.reshape(-1, cfg.d_model)
+        gates, ids, _ = moe_mod._route(tokens, blk["router"], cfg.top_k)
+        want_out = (x + moe_mod._moe_grouped(tokens, blk, gates, ids, cfg)
+                    .to(x.dtype).reshape(x.shape)).cpu()
+        want = float(loss_fn(params, _shard_batch(cfg, B, S, dev), cfg)[0])
+    del params, blk, x, h, tokens
+    free_device_memory()
+    out = pool.run(sharded_moe_job, cfg, B, S)
+    errs = {b: _row_rel(o, want_out) for b, o in out[0]["outs"].items()}
+    got = out[0]["loss"]
+    print(f"phase 14 (c) {cfg.name} full width, 1 layer, MoE block over "
+          f"{B} x {S} tokens ({where}: ep, {cfg.n_experts // SHARD_MESH[1]} "
+          f"experts a model rank), capacity_factor {cfg.capacity_factor}: "
+          f"worst row relative L2 against the one-device dropless "
+          f"_moe_grouped " + ", ".join(f"{b} {e:.3e}" for b, e in errs.items())
+          + f" (limit {SHARD_MOE_TOL}); ms by rank " + json.dumps(
+              {b: [round(o["ms"][b], 1) for o in out] for b in errs})
+          + f"; loss {got:.6f} against one device {want:.6f} (rtol "
+          f"{abs(got - want) / abs(want):.3e}); peak GB by rank after the "
+          f"shards were cut: MoE block {json.dumps([round(o['peak_ffn_gb'], 3) for o in out])}"
+          f", with the loss {json.dumps([round(o['peak_gb'], 3) for o in out])}"
+          f"; host moves {out[0]['staged']} a rank; {label}", flush=True)
+    for b, e in errs.items():
+        check(e <= SHARD_MOE_TOL, f"sharded MoE {b}: {e} > {SHARD_MOE_TOL}")
+    check(abs(got - want) <= SHARD_RTOL * abs(want),
+          f"sharded {cfg.name} loss {got} vs one device {want}")
+    del out, want_out
+    free_device_memory()
+
+    # (d) Mamba2-130M whole
+    run = SHARD_MAMBA2
+    cfg = _shard_cfg(run["arch"])
+    B, S = run["loss"]
+    params = init_params(cfg, SHARD_SEED, device=dev)
+    with torch.no_grad():
+        want = float(loss_fn(params, _shard_batch(cfg, B, S, dev), cfg)[0])
+    del params
+    free_device_memory()
+    pool.reset_counts()
+    out = pool.run(sharded_model_job, cfg, B, S, True)
+    counts = dict(pool.launches)
+    got = out[0]["loss"]
+    del out
+    launches["ssd"], launches["ssd_bwd"] = counts["ssd"], counts["ssd_bwd"]
+    print(f"phase 14 (d) {cfg.name} whole ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}), bf16 loss and gradients {B} x {S} ({where}): "
+          f"loss {got:.6f} against one device {want:.6f} (rtol "
+          f"{abs(got - want) / abs(want):.3e}, limit {SHARD_RTOL}); SSD "
+          f"forward / backward launches from the ranks {counts['ssd']} / "
+          f"{counts['ssd_bwd']}; {label}", flush=True)
+    check(abs(got - want) <= SHARD_RTOL * abs(want),
+          f"sharded {cfg.name} loss {got} vs one device {want}")
+    check(counts["ssd"] > 0 and counts["ssd_bwd"] > 0,
+          f"the sharded Mamba2 run launched {counts} in the ranks")
+
+    # (e) train(mesh=) on (b)'s Phi-3
+    cfg = _shard_cfg(SHARD_PHI3["arch"], SHARD_PHI3["layers"])
+    kw = dict(SHARD_TRAIN, ckpt_dir=None, seed=SHARD_SEED)
+    _, want = train(cfg, device=dev, **kw)
+    free_device_memory()
+    pool.run(step_times_job, True)
+    pool.reset_counts()
+    t0 = time.perf_counter()
+    _, got = train(cfg, mesh=make_test_mesh(*SHARD_MESH), transport=RANK_TRANSPORT,
+                   wrap_step=StepTimer(), **kw)
+    wall = time.perf_counter() - t0
+    staged = pool.staged
+    times = pool.run(step_times_job, False)
+    for k in ("fa", "fa_bwd"):
+        launches[k] += pool.launches[k]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"phase 14 (e) train(mesh=make_test_mesh{SHARD_MESH}, transport="
+          f"{RANK_TRANSPORT!r}) {cfg.name} {cfg.n_layers} layers, "
+          f"{SHARD_TRAIN['steps']} steps of {SHARD_TRAIN['batch']} x "
+          f"{SHARD_TRAIN['seq']}: losses {json.dumps([round(v, 6) for v in got])}"
+          f" against one device {json.dumps([round(v, 6) for v in want])} "
+          f"(worst rtol {rel:.3e}, limit {SHARD_RTOL}); ms per step by rank "
+          f"{json.dumps([[round(m, 1) for m in t[0]] for t in times])}; host "
+          f"moves per step {staged / SHARD_TRAIN['steps']:.0f} (all ranks); "
+          f"peak GB by rank {json.dumps([round(t[1], 3) for t in times])}; "
+          f"call wall {wall:.1f} s (init, shard, steps, gather); FA forward / "
+          f"backward launches from the ranks {pool.launches['fa']} / "
+          f"{pool.launches['fa_bwd']}; {label}", flush=True)
+    check(rel <= SHARD_RTOL, f"train(mesh=) losses {got} vs one device {want}")
+    free_device_memory()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main():
@@ -3608,13 +4050,16 @@ def main():
             by_path["phi3 train"] = training["fa"]
             by_path["zamba2 train"] = training["zamba2"]["counts"]["fa"]
             by_path["ring attention over 4 ranks"] = ranked["fa"]
+            by_path["sharded phi3 over 4 ranks"] = ranked["sharded"]["fa"]
             shapes = model_rows["fa_shapes"]
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 launches_per=f"one prefill of each path, {TRAIN_STEPS} "
                              f"phi3 and zamba2 train steps (forward and remat "
-                             f"recompute) and one ring attention over "
-                             f"{RANKS} ranks",
+                             f"recompute), one ring attention over "
+                             f"{RANKS} ranks and phase 14's sharded Phi-3 "
+                             f"(bf16 loss, f32 gradients, {SHARD_TRAIN['steps']} "
+                             f"train(mesh=) steps)",
                 max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes),
                                 training["bwd_row"]["forward_with_stats_err"]),
                 forward_with_stats_max_abs_err=training["bwd_row"][
@@ -3624,11 +4069,13 @@ def main():
                                            "library")} for x in shapes])
         else:
             by_path = {"zamba2 prefill": model_launches["ssd"],
-                       "zamba2 train": training["zamba2"]["counts"]["ssd"]}
+                       "zamba2 train": training["zamba2"]["counts"]["ssd"],
+                       "sharded mamba2 over 4 ranks": ranked["sharded"]["ssd"]}
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
-                launches_per=f"one zamba2-2.7b prefill and {TRAIN_STEPS} "
-                             f"zamba2 train steps (forward and remat recompute)")
+                launches_per=f"one zamba2-2.7b prefill, {TRAIN_STEPS} "
+                             f"zamba2 train steps (forward and remat recompute) "
+                             f"and phase 14's sharded Mamba2 loss and gradients")
         kernels.append(entry)
     r = training["bwd_row"]
     kernels.append({
@@ -3636,10 +4083,14 @@ def main():
         "replaces": FA_BWD_REPLACES,
         "replaces_what": "XLA's gradient of chunked_attention: the JAX "
                          "package has no backward kernel",
-        "launches": training["fa_bwd"] + training["zamba2"]["counts"]["fa_bwd"],
+        "launches": training["fa_bwd"] + training["zamba2"]["counts"]["fa_bwd"]
+        + ranked["sharded"]["fa_bwd"],
         "launches_by_path": {"phi3 train": training["fa_bwd"],
-                             "zamba2 train": training["zamba2"]["counts"]["fa_bwd"]},
-        "launches_per": f"{TRAIN_STEPS} phi3 and {TRAIN_STEPS} zamba2 train steps",
+                             "zamba2 train": training["zamba2"]["counts"]["fa_bwd"],
+                             "sharded phi3 over 4 ranks": ranked["sharded"]["fa_bwd"]},
+        "launches_per": f"{TRAIN_STEPS} phi3 and {TRAIN_STEPS} zamba2 train "
+                        f"steps, phase 14's sharded Phi-3 gradients and "
+                        f"train(mesh=) steps",
         "kernels_per_launch": FA_BWD_KERNELS,
         "kernels": "bf16: fa_bwd_delta_kernel, fa_bwd_dkdv_wgmma_kernel, "
                    "fa_bwd_dq_wgmma_kernel (wgmma + TMA, the forward's "
@@ -3663,9 +4114,12 @@ def main():
         "replaces": SSD_BWD_REPLACES,
         "replaces_what": "XLA's gradient of ssd_chunked: the JAX package has "
                          "no backward kernel",
-        "launches": training["zamba2"]["counts"]["ssd_bwd"],
-        "launches_by_path": {"zamba2 train": training["zamba2"]["counts"]["ssd_bwd"]},
-        "launches_per": f"{TRAIN_STEPS} zamba2 train steps",
+        "launches": training["zamba2"]["counts"]["ssd_bwd"]
+        + ranked["sharded"]["ssd_bwd"],
+        "launches_by_path": {"zamba2 train": training["zamba2"]["counts"]["ssd_bwd"],
+                             "sharded mamba2 over 4 ranks": ranked["sharded"]["ssd_bwd"]},
+        "launches_per": f"{TRAIN_STEPS} zamba2 train steps and phase 14's "
+                        f"sharded Mamba2 gradients",
         "kernels_per_launch": len(ssd.BWD_KERNELS),
         "kernels": "ssd_bwd_ds_kernel (dS per head group, dcs partials), "
                    "ssd_bwd_ds_sum_kernel (the groups' dS summed in order), "

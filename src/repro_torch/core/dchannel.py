@@ -27,7 +27,10 @@ sends the cotangent the other way round, as the transpose of the
 reference's ``ppermute`` does.  :func:`double_buffered_ring` posts hop
 k+1's send before hop k's body and carries none.  :func:`psum` is the
 reference's ``lax.psum``, and ``_pipeline`` the tensor body of
-:func:`repro_torch.core.dpipeline.pipeline_apply`.
+:func:`repro_torch.core.dpipeline.pipeline_apply`.  :func:`all_reduce`
+(``lax.psum``/``pmax`` with no gradient) and :func:`all_gather`
+(``lax.all_gather(tiled=True)``) are the plain collectives the sharded
+model and the optimizer build on.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch.distributed as dist
 from .ranks import Group
 
 __all__ = ["ring_send", "chain_send", "reverse_chain_send", "RingChannel",
-           "double_buffered_ring", "psum"]
+           "double_buffered_ring", "psum", "all_reduce", "all_gather"]
 
 PyTree = Any
 
@@ -247,6 +250,33 @@ def psum(t: torch.Tensor, group: Group) -> torch.Tensor:
     if group.size == 1:
         return t
     return _PsumFn.apply(t, group)
+
+
+def all_reduce(t: torch.Tensor, group: Group,
+               op: Any = dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced by ``op`` over the group, as a new tensor on ``t``'s
+    device (staged through the host where the transport needs it).  No
+    gradient: the sharded model's operators wrap it."""
+    if group.size == 1:
+        return t
+    gctx = group.ctx
+    wire = gctx.to_wire(t)
+    if wire is t:
+        wire = t.clone()
+    dist.all_reduce(wire, op=op, group=group.pg)
+    return gctx.from_wire(wire, t.device)
+
+
+def all_gather(t: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
+    """The members' ``t`` concatenated along ``dim`` in group order (the
+    reference's tiled ``all_gather``).  No gradient."""
+    if group.size == 1:
+        return t
+    gctx = group.ctx
+    wire = gctx.to_wire(t)
+    parts = [gctx.recv_buffer(wire) for _ in range(group.size)]
+    dist.all_gather(parts, wire, group=group.pg)
+    return gctx.from_wire(torch.cat(parts, dim=dim), t.device)
 
 
 def _pipeline(stage_fn: Callable, stage_params: Any,

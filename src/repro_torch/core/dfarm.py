@@ -28,6 +28,9 @@ identity.  The exchange is pluggable:
                  keeping the bucket addressed to this rank.  Same payload
                  bytes, no exchange over the whole group on the data path.
 
+Both exchanges carry a gradient (the all-to-all is its own transpose; a
+ring hop sends its cotangent back), so the MoE dispatch over them trains.
+
 This module also holds the tensor half of the mesh programs — the
 host-side packing of a call's items (:func:`pack`, :func:`pad`,
 :func:`unpack`), the one-device programs (:func:`chain_program`,
@@ -51,7 +54,8 @@ from .skeleton import LoweringError
 __all__ = ["dispatch", "combine", "farm_map", "farm_until",
            "roundrobin_dest", "farm_utilisation", "resolve_device",
            "device_count", "pack", "pad", "unpack", "chain_program",
-           "keyed_program", "rank_chain_program", "rank_keyed_program"]
+           "keyed_program", "rank_chain_program", "rank_keyed_program",
+           "DispatchInfo"]
 
 _BACKENDS = ("a2a", "ring")
 Workers = Union[int, Group]
@@ -69,6 +73,10 @@ def farm_utilisation(n_items: int, n_workers: int) -> float:
         return 0.0
     rounds = -(-n_items // n_workers)
     return n_items / (n_workers * rounds)
+
+
+class DispatchInfo(tuple):
+    """(dest, pos, valid) routing tag triple."""
 
 
 def _axis(workers: Workers) -> Tuple[int, int, Optional[Group]]:
@@ -94,10 +102,30 @@ def _exchange(send: torch.Tensor, workers: Workers,
         return send
     if backend == "ring":
         return _ring_exchange(send, group)
+    if torch.is_grad_enabled() and send.requires_grad:
+        return _A2AFn.apply(send, group)
+    return _all_to_all(send, group)
+
+
+def _all_to_all(send: torch.Tensor, group: Group) -> torch.Tensor:
     ctx = group.ctx
     wire, recv = ctx.to_wire(send), ctx.recv_buffer(send)
     dist.all_to_all_single(recv, wire, group=group.pg)
     return ctx.from_wire(recv, send.device)
+
+
+class _A2AFn(torch.autograd.Function):
+    """The all-to-all with a gradient: row s of the cotangent goes back to
+    worker s, which is the same exchange again (its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        return _all_to_all(send, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad.contiguous(), ctx.group), None
 
 
 def _ring_exchange(send: torch.Tensor, group: Group) -> torch.Tensor:
@@ -144,7 +172,7 @@ def dispatch(items: torch.Tensor, dest: torch.Tensor, workers: Workers,
         recv = _exchange(send.to(wire_dtype), workers, backend).to(items.dtype)
     else:
         recv = _exchange(send, workers, backend)
-    return recv, (dest, pos, valid)
+    return recv, DispatchInfo((dest, pos, valid))
 
 
 def combine(processed: torch.Tensor, info: Tuple[torch.Tensor, ...],

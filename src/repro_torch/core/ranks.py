@@ -17,6 +17,8 @@ of the mesh, and an axis becomes a ``torch.distributed`` process group:
   process groups of a ``(stage, worker)`` factorization — one per stage
   row and one per worker column, on every rank, in the same order.
   A :class:`Group` is what a reference function names by ``axis_name``.
+  :func:`current` gives the rank's context to code that is not handed
+  it (``repro_torch.parallel.context.mesh_context``).
 
 The transport is explicit.  ``"nccl"`` (the default) needs a card per
 rank.  ``"gloo"`` takes any layout, CPU ranks included: on CUDA ranks it
@@ -51,7 +53,7 @@ import torch.distributed as dist
 from .skeleton import LoweringError
 
 __all__ = ["TRANSPORTS", "RankPool", "RankContext", "Group", "card_count",
-           "plan_ranks", "pool", "shutdown"]
+           "plan_ranks", "pool", "shutdown", "current"]
 
 TRANSPORTS = ("nccl", "gloo")
 #: the kernel launch counters a rank reports after each job: name ->
@@ -63,8 +65,10 @@ _COUNTERS = {
     "ssd": ("repro_torch.kernels.ssd_scan", "launch_count"),
     "ssd_bwd": ("repro_torch.kernels.ssd_scan", "bwd_launch_count"),
 }
-#: the CUDA sources a rank's paths launch, built in the caller first
-_PREBUILD = ("smith_waterman", "flash_attention", "ssd_scan")
+#: the CUDA sources a rank's paths launch (the sharded model's training
+#: too: the backward kernels), built in the caller first
+_PREBUILD = ("smith_waterman", "flash_attention", "flash_attention_bwd",
+             "ssd_scan", "ssd_scan_bwd")
 _GRACE_S = 10.0     # how long the other ranks may take to fail after one did
 _TIMEOUT_S = 600.0  # a job, or a collective inside one, that takes longer hung
 
@@ -200,6 +204,15 @@ class RankContext:
         return t.to(device)
 
 
+_CURRENT: Optional[RankContext] = None
+
+
+def current() -> Optional[RankContext]:
+    """The :class:`RankContext` of this process when it is a rank (a job
+    runs in it), else None."""
+    return _CURRENT
+
+
 def _launch_counts() -> Dict[str, int]:
     """This process's kernel launch counters (modules not yet imported
     have launched nothing)."""
@@ -210,12 +223,33 @@ def _launch_counts() -> Dict[str, int]:
     return out
 
 
+#: bytes a pipe message carries at most: a message goes as a count of
+#: frames, then the frames.  A receiver reads a whole message with one
+#: read call the size of the message, which some hosts serve very slowly
+#: (``tools/pipe_frames.py`` times both forms).
+_FRAME = 1 << 24
+
+
+def _send_blob(conn, blob: bytes) -> None:
+    view = memoryview(blob)
+    n = max(1, -(-len(view) // _FRAME))
+    conn.send_bytes(n.to_bytes(8, "little"))
+    for i in range(n):
+        conn.send_bytes(view[i * _FRAME:(i + 1) * _FRAME])
+
+
 def _send(conn, msg: Any) -> None:
-    conn.send_bytes(pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL))
+    _send_blob(conn, pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL))
 
 
 def _recv(conn) -> Any:
-    return pickle.loads(conn.recv_bytes())
+    n = int.from_bytes(conn.recv_bytes(), "little")
+    if n == 1:
+        return pickle.loads(conn.recv_bytes())
+    buf = bytearray()
+    for _ in range(n):
+        buf += conn.recv_bytes()
+    return pickle.loads(buf)
 
 
 def _picklable(e: BaseException) -> BaseException:
@@ -238,8 +272,9 @@ def _rank_main(rank: int, world: int, store: str, device: str,
     dist.init_process_group(transport, init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=_TIMEOUT_S))
+    global _CURRENT
     try:
-        ctx = RankContext(rank, world, dev, transport)
+        ctx = _CURRENT = RankContext(rank, world, dev, transport)
         _send(conn, ("ready", None, None, 0))
         while True:
             msg = _recv(conn)
@@ -350,7 +385,7 @@ class RankPool:
                 f"functools.partial, or picklable objects — not lambdas or "
                 f"closures): {e!r}") from e
         for conn, blob in zip(self._conns, blobs):
-            conn.send_bytes(blob)
+            _send_blob(conn, blob)
         replies = self._gather()
         for _, _, counts, staged in replies:
             for k, v in counts.items():

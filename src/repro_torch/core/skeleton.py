@@ -65,6 +65,12 @@ __all__ = [
     "LoweringError", "lower", "BACKENDS", "ThreadProgram", "MeshProgram",
 ]
 
+# The reference's shard_map axis names of the mesh lowering's (stage,
+# worker) grid; the port's grid is RankContext.grid's groups, and these
+# name its axes.
+STAGE_AXIS = "skel_stage"
+WORKER_AXIS = "skel_worker"
+
 
 # ---------------------------------------------------------------------------
 # programming model (paper Fig. 2) — shared by every backend

@@ -29,8 +29,22 @@ router loss; with ``cfg.remat`` each scan body (a layer; a group for the
 hybrid and vlm families; the ssm family has none, as in the reference) is
 recomputed in the backward by ``torch.utils.checkpoint``.
 
-Left for a later slice of the port: the sharding specs (ROADMAP §1 item
-11, multi-GPU); there is one device.
+Distribution (``repro_torch.parallel.context``): ``params_pspecs``,
+``cache_pspecs`` and ``batch_pspecs`` are the reference's sharding-token
+trees.  Inside a ``mesh_context`` of more than one rank, ``loss_fn`` runs
+SPMD by hand on the local shards those tokens name: the embedding lookup
+and the cross entropy are vocab-parallel over the model group, attention
+runs the rank's heads, the MLP its slice of d_ff and the MoE block its
+experts (or d_ff slice), each region opened by ``enter_model`` and closed
+by a sum over the model group; Mamba2 blocks run whole on every model
+rank (their parameters replicate over it); each block's ``"dp"`` dims are
+gathered where it runs (``fsdp_gather``).  Each rank's loss is its rows'
+token sum over the global token count, summed over the data group; the
+MoE router loss is the mean of the data shards' (the reference declares
+its per-shard value replicated).  A batch that does not divide over the
+data group is replicated and weighted 1/dp, so nothing counts twice.
+``prefill`` and ``decode_step`` under such a context raise: the reference
+shards caches only for its dry run (ROADMAP §1 item 12).
 """
 from __future__ import annotations
 
@@ -44,6 +58,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.ops import resolve_device
 from ..tree import tree_map
 from .attention import attention, decode_attention
+from ..parallel.context import (DP, MP, enter_model, fsdp_gather, pmax,
+                                psum_compat, sharded_ctx)
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, embed_init, init_device,
                      rms_norm, swiglu)
@@ -52,6 +68,7 @@ from .ssm import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
 __all__ = ["init_params", "init_params_spec", "forward_hidden", "loss_fn",
            "prefill", "decode_step", "init_cache", "segment_counts",
+           "params_pspecs", "cache_pspecs", "batch_pspecs",
            "SUPPORTED_FAMILIES"]
 
 Params = Dict[str, Any]
@@ -202,6 +219,119 @@ def init_params_spec(cfg: ModelConfig) -> Params:
 
 
 # ==========================================================================
+# sharding-token trees (the reference's, token for token)
+# ==========================================================================
+def _fsdp_tok(cfg: ModelConfig):
+    """'dp' for training (ZeRO-3); None for replicated-param serving."""
+    return None if cfg.serve_params_replicated else DP
+
+
+def _attn_block_specs(cfg: ModelConfig, mp_size: int, cross: bool = False):
+    dp = _fsdp_tok(cfg)
+    p = {
+        "norm1": None,
+        "wq": (dp, MP, None),
+        "wk": (dp, None, None),
+        "wv": (dp, None, None),
+        "wo": (MP, None, dp),
+    }
+    if cfg.family == "moe" and not cross:
+        ep = cfg.n_experts % max(mp_size, 1) == 0
+        moe = {
+            "router": (dp, None),
+            "w_gate": (MP, dp, None) if ep else (None, dp, MP),
+            "w_up": (MP, dp, None) if ep else (None, dp, MP),
+            "w_down": (MP, None, dp) if ep else (None, MP, dp),
+        }
+        if cfg.n_shared_experts:
+            moe["shared"] = {"w_gate": (dp, MP), "w_up": (dp, MP),
+                             "w_down": (MP, dp)}
+        p["norm2"] = None
+        p["moe"] = moe
+    elif cfg.d_ff:
+        p["norm2"] = None
+        p["mlp"] = {"w_gate": (dp, MP), "w_up": (dp, MP), "w_down": (MP, dp)}
+    return p
+
+
+def _ssm_specs(cfg: ModelConfig):
+    # The SSD state mixes (H, P, N) non-separably with n_groups=1, so Mamba
+    # parameters replicate over the model axis (as in the reference: Mamba
+    # TP needs grouped B/C); FSDP over data still shards their storage.
+    dp = _fsdp_tok(cfg)
+    return {
+        "w_z": (dp, None), "w_xbc": (dp, None), "w_dt": (dp, None),
+        "dt_bias": None, "A_log": None, "D": None,
+        "conv_w": (None, dp), "norm": None, "w_out": (None, dp),
+    }
+
+
+def params_pspecs(cfg: ModelConfig, mp_size: int = 16) -> Params:
+    """Same tree structure as init_params, with sharding-token tuples.
+    Stacked segments get a leading ``None`` dim prepended per stack level."""
+    def prepend(tree, n_lead: int):
+        return tree_map(lambda s: (None,) * n_lead
+                        + (s if isinstance(s, tuple) else ()), tree)
+
+    dp = _fsdp_tok(cfg)
+    specs: Params = {
+        "embed": (MP, dp),
+        "final_norm": None,
+        "lm_head": (None, MP, dp) if cfg.n_codebooks else (MP, dp),
+    }
+    if cfg.family == "hybrid":
+        specs["ssm"] = prepend(_ssm_specs(cfg), 2)
+        specs["shared_attn"] = _attn_block_specs(cfg, mp_size)
+    elif cfg.family == "vlm":
+        specs["self"] = prepend(_attn_block_specs(cfg, mp_size), 2)
+        specs["cross"] = prepend(_attn_block_specs(cfg, mp_size, cross=True), 1)
+        specs["vision_proj"] = (dp, None)
+    elif cfg.family == "ssm":
+        specs["blocks"] = prepend(_ssm_specs(cfg), 1)
+    else:
+        specs["blocks"] = prepend(_attn_block_specs(cfg, mp_size), 1)
+    return specs
+
+
+def cache_pspecs(cfg: ModelConfig, batch: int, dp_divisible: bool) -> Dict[str, Any]:
+    b = DP if dp_divisible else None
+    kv_spec = (None, b, MP, None, None)
+    if cfg.family in _UNIFORM:
+        return {"k": kv_spec, "v": kv_spec}
+    if cfg.family == "ssm":
+        return {"h": (None, b, None, None, None), "conv": (None, b, None, None)}
+    if cfg.family == "hybrid":
+        return {"h": (None, None, b, None, None, None),
+                "conv": (None, None, b, None, None),
+                "k": kv_spec, "v": kv_spec}
+    if cfg.family == "vlm":
+        s = (None, None, b, MP, None, None)
+        return {"k": s, "v": s}
+    raise ValueError(cfg.family)
+
+
+def batch_pspecs(cfg: ModelConfig, batch: int, dp_size: int) -> Dict[str, Any]:
+    b = DP if batch % max(dp_size, 1) == 0 else None
+    out = {}
+    if cfg.family == "audio":
+        out["frames"] = (b, None, None)
+        out["labels"] = (b, None, None)
+    else:
+        out["tokens"] = (b, None)
+        out["labels"] = (b, None)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = (b, None, None)
+    return out
+
+
+def _refuse_sharded(what: str) -> None:
+    if sharded_ctx() is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh of more than one rank: the reference "
+            f"shards caches only for its dry run (ROADMAP §1 item 12)")
+
+
+# ==========================================================================
 # blocks
 # ==========================================================================
 def _chunk_ce(x_c: torch.Tensor, labels_c: torch.Tensor, head: torch.Tensor,
@@ -216,6 +346,28 @@ def _chunk_ce(x_c: torch.Tensor, labels_c: torch.Tensor, head: torch.Tensor,
         return lse - lab
 
 
+def _chunk_ce_sharded(x_c: torch.Tensor, labels_c: torch.Tensor,
+                      head: torch.Tensor, vocab: int, group) -> torch.Tensor:
+    """:func:`_chunk_ce` with ``head`` this rank's rows of the vocab: the
+    max over the group on a detached value (a stabiliser), the sums of
+    exponentials and the label logit summed over the group, the vocab
+    padding masked by global id."""
+    with record_function("train.ce"):
+        logits = x_c.float() @ head.float().T              # (B, c, V/mp)
+        v_loc = logits.shape[-1]
+        lo = group.rank * v_loc
+        gid = lo + torch.arange(v_loc, device=logits.device)
+        logits = torch.where(gid < vocab, logits, -1e30)
+        gmax = pmax(logits.amax(dim=-1), group)
+        se = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+        lse = torch.log(psum_compat(se, group)) + gmax
+        loc = labels_c.long() - lo
+        ok = (loc >= 0) & (loc < v_loc)
+        lab = torch.gather(logits, -1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+        lab = psum_compat(torch.where(ok, lab, 0.0), group)
+        return lse - lab
+
+
 def _vocab_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """(B, S) per-token cross entropy of x (B,S,d) against head (V,d).
@@ -224,16 +376,22 @@ def _vocab_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     instead of kept (the reference's ``jax.checkpoint``), so no more than
     one chunk's (B, chunk, V) f32 logits live at a time."""
     S = x.shape[1]
+    ctx = sharded_ctx()
+    fn, extra = _chunk_ce, ()
+    if ctx is not None:     # vocab-parallel over the model group
+        head = fsdp_gather(head, (MP, _fsdp_tok(cfg)))
+        x = enter_model(x, ctx.model)
+        fn, extra = _chunk_ce_sharded, (ctx.model,)
     csize = cfg.loss_chunk if cfg.loss_chunk and S % cfg.loss_chunk == 0 else S
     if csize == S:
-        return _chunk_ce(x, labels, head, cfg.vocab_size)
+        return fn(x, labels, head, cfg.vocab_size, *extra)
     recompute = torch.is_grad_enabled()
     parts = []
     for c0 in range(0, S, csize):
         args = (x[:, c0:c0 + csize], labels[:, c0:c0 + csize], head,
-                cfg.vocab_size)
-        parts.append(checkpoint(_chunk_ce, *args, use_reentrant=False)
-                     if recompute else _chunk_ce(*args))
+                cfg.vocab_size, *extra)
+        parts.append(checkpoint(fn, *args, use_reentrant=False)
+                     if recompute else fn(*args))
     return torch.cat(parts, dim=1)
 
 
@@ -250,25 +408,59 @@ def _head_mask(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
     return (torch.arange(hp, device=device) < cfg.n_heads).to(cfg.param_dtype)
 
 
+def _local_heads(cfg: ModelConfig, n: int, m: int) -> Tuple[slice, slice]:
+    """(q heads, kv heads) of model rank ``m`` of ``n``: a contiguous 1/n
+    of the (padded) q heads, and the kv heads those use (q head j uses kv
+    head j // (H / Hkv))."""
+    hp, kv = cfg.n_heads_padded, _kv_heads_alloc(cfg)
+    hl, g = hp // n, hp // kv
+    j0 = m * hl
+    k0, k1 = j0 // g, (j0 + hl - 1) // g + 1
+    if hp % n or hl % (k1 - k0) or (hl >= g and hl % g) or (hl < g and g % hl):
+        raise ValueError(f"{cfg.name}: {hp} q heads and {kv} kv heads do not "
+                         f"split over {n} model ranks")
+    return slice(j0, j0 + hl), slice(k0, k1)
+
+
 def _attn_core(p, x, cfg: ModelConfig, *, positions, mode: str,
-               kv_cache=None, cache_len=None, rolling=False, ext_kv=None,
+               kv_cache=None, cache_len=None, rolling=False, vision=None,
                start_pos=None):
     """Shared attention path. Returns (delta, new_kv_cache or None).
 
-    With ``ext_kv`` (cross-attention) k and v are the projected vision
-    stream's: q takes no RoPE, prefill attends every vision row
-    (non-causal), decode attends them all, and no cache is returned."""
+    With ``vision`` (cross-attention) k and v are projected from the
+    vision stream: q takes no RoPE, prefill attends every vision row
+    (non-causal), decode attends them all, and no cache is returned.
+
+    Under a sharded context ``p`` is gathered over the data group and the
+    rank runs its q heads (``_local_heads``) with the kv heads they use,
+    and the output projection's partial sums are summed over the model
+    group."""
+    ctx = sharded_ctx()
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    wk, wv = p["wk"], p["wv"]
+    mask = _head_mask(cfg, x.device)
+    if ctx is not None:
+        qs, ks = _local_heads(cfg, ctx.model.size, ctx.model.rank)
+        h = enter_model(h, ctx.model)
+        # wk/wv replicate over the model group and a rank uses only its
+        # kv heads: the entry operator sums their gradient over the group
+        wk = enter_model(wk, ctx.model)[:, ks]
+        wv = enter_model(wv, ctx.model)[:, ks]
+        if vision is not None:
+            vision = enter_model(vision, ctx.model)
+        if mask is not None:
+            mask = mask[qs]
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    if ext_kv is not None:
-        k, v = ext_kv
+    if vision is not None:
+        k = torch.einsum("bpd,dhk->bphk", vision, wk)
+        v = torch.einsum("bpd,dhk->bphk", vision, wv)
     else:
-        k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+        k = torch.einsum("bsd,dhk->bshk", h, wk)
+        v = torch.einsum("bsd,dhk->bshk", h, wv)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
-    if mode == "decode" and ext_kv is None:
+    if mode == "decode" and vision is None:
         k_cache, v_cache = kv_cache
         T = k_cache.shape[1]
         # the reference's dynamic_update_slice clamps the slot to T - 1
@@ -283,38 +475,49 @@ def _attn_core(p, x, cfg: ModelConfig, *, positions, mode: str,
     elif mode == "decode":
         attn = decode_attention(q, k, v, k.shape[1])
     else:
-        attn = attention(q, k, v, causal=ext_kv is None,
+        attn = attention(q, k, v, causal=vision is None,
                          window=cfg.sliding_window, impl=cfg.attn_impl,
                          q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
                          causal_skip=cfg.causal_skip)
-        if ext_kv is None and mode == "prefill":
+        if vision is None and mode == "prefill":
             new_cache = (k, v)
-    mask = _head_mask(cfg, x.device)
     if mask is not None:
         attn = attn * mask[None, None, :, None]
     out = torch.einsum("bshk,hkd->bsd", attn.to(x.dtype), p["wo"])
+    if ctx is not None:
+        out = psum_compat(out, ctx.model)
     return out, new_cache
 
 
 def _ffn_part(p, x, cfg: ModelConfig):
     """MLP or MoE sub-block (with pre-norm + residual).  Returns (x, aux):
     the MoE router's load-balancing loss, None without one."""
+    ctx = sharded_ctx()
     if "moe" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        delta, aux = moe_apply(h, p["moe"], cfg)
+        delta, aux = moe_apply(h, p["moe"], cfg,
+                               axis_name=None if ctx is None else ctx.model)
         return x + delta, aux
     if "mlp" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         m = p["mlp"]
-        return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+        if ctx is None:
+            return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+        part = swiglu(enter_model(h, ctx.model), m["w_gate"], m["w_up"],
+                      m["w_down"])                  # this rank's d_ff slice
+        return x + psum_compat(part, ctx.model), None
     return x, None
 
 
 def _attn_block(p, x, cfg, *, positions, mode, kv_cache=None, cache_len=None,
-                rolling=False, ext_kv=None, start_pos=None):
+                rolling=False, vision=None, start_pos=None):
+    ctx = sharded_ctx()
+    if ctx is not None:
+        p = fsdp_gather(p, _attn_block_specs(cfg, ctx.mp_size,
+                                             cross=vision is not None))
     delta, new_cache = _attn_core(p, x, cfg, positions=positions, mode=mode,
                                   kv_cache=kv_cache, cache_len=cache_len,
-                                  rolling=rolling, ext_kv=ext_kv,
+                                  rolling=rolling, vision=vision,
                                   start_pos=start_pos)
     x, aux = _ffn_part(p, x + delta, cfg)
     return x, aux, new_cache
@@ -322,6 +525,8 @@ def _attn_block(p, x, cfg, *, positions, mode, kv_cache=None, cache_len=None,
 
 def _ssm_block(p, x, cfg, mode, cache):
     """One Mamba2 block with residual. Returns (x, new_cache or None)."""
+    if sharded_ctx() is not None:
+        p = fsdp_gather(p, _ssm_specs(cfg))
     if mode == "decode":
         delta, nc = ssm_decode(p, x, cache, cfg)
         return x + delta, nc
@@ -337,7 +542,8 @@ def _ssm_block(p, x, cfg, mode, cache):
 def _vision_kv(params, vision_embeds, cfg: ModelConfig):
     """Project the (stub) vision embeddings once; per-cross-layer K/V are
     computed from this shared stream inside each cross block."""
-    return (vision_embeds @ params["vision_proj"]).to(params["vision_proj"].dtype)
+    proj = fsdp_gather(params["vision_proj"], (_fsdp_tok(cfg), None))
+    return (vision_embeds @ proj).to(proj.dtype)
 
 
 def _maybe_remat(cfg: ModelConfig, mode: str) -> Callable:
@@ -435,9 +641,7 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     g_k.append(nc[0])
                     g_v.append(nc[1])
             # cross-attention over the vision stream, projected per block
-            kc = torch.einsum("bpd,dhk->bphk", vision_stream, pc["wk"])
-            vc = torch.einsum("bpd,dhk->bphk", vision_stream, pc["wv"])
-            x, aux, _ = block(pc, x, ext_kv=(kc, vc))
+            x, aux, _ = block(pc, x, vision=vision_stream)
             return x, _sum_aux(g_aux + [aux], x.device), (g_k, g_v)
 
         ks, vs = [], []
@@ -465,6 +669,23 @@ def _sum_aux(auxes, device) -> torch.Tensor:
 # ==========================================================================
 # entry points
 # ==========================================================================
+def _embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """``table[ids]``; under a sharded context vocab-parallel: each model
+    rank looks up the ids in its rows (zeros elsewhere) and the rows are
+    summed over the model group."""
+    ctx = sharded_ctx()
+    if ctx is None:
+        return table[ids.long()]
+    tbl = fsdp_gather(table, (MP, _fsdp_tok(cfg)))
+    v_loc = tbl.shape[0]
+    loc = ids.long() - ctx.model.rank * v_loc
+    ok = (loc >= 0) & (loc < v_loc)
+    emb = torch.where(ok[..., None], tbl[loc.clamp(0, v_loc - 1)],
+                      torch.zeros((), dtype=tbl.dtype, device=tbl.device))
+    return psum_compat(emb, ctx.model)
+
+
 def _embed_batch(params, batch, cfg: ModelConfig):
     """(x (B,S,d) in the working dtype, the projected vision stream or
     None): audio reads precomputed frame embeddings, vlm also projects
@@ -473,7 +694,7 @@ def _embed_batch(params, batch, cfg: ModelConfig):
     if cfg.family == "audio":
         x = batch["frames"].to(cfg.param_dtype)
     else:
-        x = params["embed"][batch["tokens"].long()]
+        x = _embed_lookup(params["embed"], batch["tokens"], cfg)
     vision = None
     if cfg.family == "vlm":
         vision = _vision_kv(params, batch["vision_embeds"].to(cfg.param_dtype), cfg)
@@ -507,6 +728,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         ce = sum(losses) / cfg.n_codebooks
     else:
         ce = _vocab_ce(x, params["lm_head"], batch["labels"], cfg).mean()
+    ctx = sharded_ctx()
+    if ctx is not None:
+        # this rank's rows' share of the global mean (rows split evenly, or
+        # replicated and weighted 1/dp), summed over the data group; the
+        # sum's backward is the identity, so each rank differentiates its
+        # own share
+        ce = psum_compat(ce / ctx.dp_size, ctx.data)
+        aux = psum_compat(aux / ctx.dp_size, ctx.data)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -517,6 +746,7 @@ def prefill(params: Params, batch, cfg: ModelConfig):
     batch: {"tokens": (B,S) int} ({"frames": (B,S,d)} for audio; vlm adds
     {"vision_embeds": (B,P,vision_dim)}).  Returns (logits (B,V) f32, or
     (B,n_codebooks,V) for audio, cache)."""
+    _refuse_sharded("prefill")
     x, vision = _embed_batch(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -536,6 +766,7 @@ def decode_step(params: Params, batch, cache, cache_len: int, cfg: ModelConfig):
     {"vision_embeds"}) and optionally {"start_pos": (B,)};
     cache_len: int — valid length before this step.
     Returns (logits as ``prefill``'s, new_cache)."""
+    _refuse_sharded("decode_step")
     x, vision = _embed_batch(params, batch, cfg)
     cache_len = int(cache_len)
     positions = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,

@@ -3,9 +3,9 @@
 Counterpart of ``repro.models.moe``.  Token→expert routing is the paper's
 farm: the router is the Emitter, the experts are the Workers, and the
 weighted recombination is the Collector (the (token, slot) pair is the
-tag).  The port runs on one device, where the reference's ``moe_apply``
-with ``axis_name=None`` computes ``_moe_dense``: every routed copy is
-kept and none is dropped by a capacity.  Two forms compute that function:
+tag).  On one device (``axis_name=None``) the reference's ``moe_apply``
+computes ``_moe_dense``: every routed copy is kept and none is dropped by
+a capacity.  Two forms compute that function:
 
   * ``_moe_grouped`` (backends ``local_gather`` and the default): a
     dropless grouped dispatch.  The (token, slot) copies are sorted by
@@ -15,9 +15,24 @@ kept and none is dropped by a capacity.  Two forms compute that function:
   * ``_moe_dense`` (backend ``dense``): every expert on every token, one
     combine weighted by the routing; the test oracle.
 
-The reference's mesh backends (``a2a``, ``ring`` and ``local_gather`` over
-a model axis) wait for multi-GPU: a mesh axis or one of those backends by
-name raises ``NotImplementedError``.
+Over a model :class:`~repro_torch.core.ranks.Group` (``axis_name``, inside
+a rank job; the activations are replicated over it) the reference's mesh
+backends run, with its per-rank static capacities, so tokens past a
+capacity drop as they do there:
+
+  * ``local_gather``: each rank gathers the copies addressed to its own
+    experts into a (E_loc, C, d) buffer, computes, and combines; one sum
+    over the group (which the tensor-parallel layout needs anyway) adds
+    the ranks' parts.
+  * ``a2a`` / ``ring``: each rank routes its 1/n slice of the tokens
+    through ``dfarm.dispatch``/``combine`` over the group (one all-to-all,
+    or n-1 ring hops), with the (local expert id + 1) as a tag column;
+    the ``ep`` layout only.
+
+The experts split over the group when E divides by its size (``ep``: E/n
+experts a rank, whole d_ff), else d_ff does (``tp``: every expert, d_ff/n
+a rank).  The tokens and the gates enter the region through
+``enter_model``, so their gradient sums the ranks' parts.
 """
 from __future__ import annotations
 
@@ -26,13 +41,16 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import dfarm
+from ..core.ranks import Group
+from ..parallel.context import enter_model, psum_compat
 from .config import ModelConfig
 from .layers import dense_init
 
 __all__ = ["moe_apply", "moe_init", "router_aux_loss", "expert_shard_kind"]
 
 _MESH_BACKENDS = ("a2a", "ring")
-_LATER = "the MoE mesh backends come with multi-GPU (ROADMAP §1 item 11)"
+_BACKENDS = ("local_gather", "dense") + _MESH_BACKENDS
 
 
 def expert_shard_kind(n_experts: int, model_axis_size: int) -> str:
@@ -120,26 +138,135 @@ def _moe_dense(tokens, params, gates, ids, cfg: ModelConfig) -> torch.Tensor:
     return torch.einsum("ted,te->td", h.float(), weight)
 
 
-def moe_apply(x: torch.Tensor, params, cfg: ModelConfig, *,
-              axis_name: Optional[str] = None,
-              backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply the MoE block to x (B, S, d) on one device.
+def _dispatch_local(tokens, eid_flat, gate_flat, e_loc: int, capacity: int):
+    """Gather the copies owned by this rank into (E_loc, C, d); return the
+    buffer and its combine.  ``eid_flat`` holds each copy's local expert
+    id (out of range: another rank's expert); a copy past its expert's
+    ``capacity`` (in (token, slot) order) is dropped and combines to 0."""
+    L, d = eid_flat.shape[0], tokens.shape[1]
+    dev = tokens.device
+    onehot = (eid_flat[:, None] == torch.arange(e_loc, device=dev)).long()
+    pos = ((onehot.cumsum(dim=0) - onehot) * onehot).sum(dim=1)  # rank in expert
+    valid = (eid_flat >= 0) & (eid_flat < e_loc) & (pos < capacity)
+    src = torch.arange(tokens.shape[0], device=dev).repeat_interleave(
+        L // tokens.shape[0])
+    buf = tokens.new_zeros((e_loc, capacity, d)).index_put(
+        (eid_flat[valid], pos[valid]), tokens[src[valid]])
 
-    Returns (out in x's dtype, aux_loss f32 scalar): the reference's
-    ``moe_apply(..., axis_name=None)``.  ``backend`` defaults to
-    ``cfg.moe_backend``; ``local_gather`` takes the grouped dispatch,
-    ``dense`` the oracle."""
+    def combine(out_buf):
+        got = out_buf[eid_flat.clamp(0, e_loc - 1), pos.clamp(0, capacity - 1)]
+        got = torch.where(valid[:, None], got,
+                          torch.zeros((), dtype=got.dtype, device=dev))
+        return got.float() * gate_flat[:, None]
+
+    return buf, combine
+
+
+def _experts_batched(buf, wg, wu, wd) -> torch.Tensor:
+    """(E_loc, C, d) -> (E_loc, C, d): every local expert's SwiGLU on its
+    capacity buffer."""
+    g = torch.einsum("ecd,edf->ecf", buf, wg)
+    u = torch.einsum("ecd,edf->ecf", buf, wu)
+    return torch.einsum("ecf,efd->ecd", F.silu(g) * u, wd)
+
+
+def _wire(cfg: ModelConfig):
+    return getattr(torch, cfg.moe_wire_dtype) if cfg.moe_wire_dtype else None
+
+
+def _moe_mesh(x, tokens, params, gates, ids, cfg: ModelConfig, group: Group,
+              backend: str) -> torch.Tensor:
+    """The reference's mesh path over the model group: this rank's share
+    of the block's output, summed over the group."""
+    n, me = group.size, group.rank
+    E, k, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
+    tk, d = tokens.shape
+    e_loc = params["w_gate"].shape[0]          # the local shard's experts
+    n_groups = E // e_loc
+    first = ((me * n_groups) // n) * e_loc     # this rank's first expert
+    tok_in = enter_model(tokens, group)
+    gates_in = enter_model(gates, group)
+    experts = (params["w_gate"], params["w_up"], params["w_down"])
+    if backend == "local_gather":
+        capacity = max(1, int(tk * k * cf / E + 0.999))
+        buf, combine = _dispatch_local(tok_in, ids.reshape(-1) - first,
+                                       gates_in.reshape(-1), e_loc, capacity)
+        out = combine(_experts_batched(buf, *experts)).reshape(tk, k, d).sum(1)
+    else:
+        if n_groups != n:
+            raise ValueError(f"the {backend} MoE dispatch needs the ep layout "
+                             f"(n_experts {E} divisible by the model group's "
+                             f"{n} ranks)")
+        if tk % n:
+            raise ValueError(f"{tk} tokens do not split over {n} model ranks")
+        slc = tk // n
+        mine = slice(me * slc, (me + 1) * slc)
+        items = tok_in[mine].repeat_interleave(k, dim=0)       # (slc*k, d)
+        flat_ids = ids[mine].reshape(-1)
+        dest = (flat_ids // e_loc).to(torch.int32)
+        # ship the (local expert id + 1) with the payload, so the worker
+        # regroups without re-routing; 0 marks an empty slot
+        tagged = torch.cat([items, (flat_ids % e_loc + 1).to(items.dtype)[:, None]],
+                           dim=1)
+        cap_dev = max(1, int(slc * k * cf / n + 0.999))
+        recv, info = dfarm.dispatch(tagged, dest, group, cap_dev,
+                                    backend=backend, wire_dtype=_wire(cfg))
+        recv_flat = recv.reshape(-1, d + 1)
+        recv_tok, recv_tag = recv_flat[:, :d], recv_flat[:, d]
+        eid1 = torch.round(recv_tag.float()).long() - 1        # -1: empty
+        cap2 = recv_flat.shape[0]
+        cap_e = max(1, -(-cap2 // e_loc) * 2)   # per local expert (cf is in cap2)
+        buf, combine = _dispatch_local(
+            recv_tok, eid1, torch.ones((cap2,), dtype=torch.float32,
+                                       device=x.device), e_loc, cap_e)
+        back = combine(_experts_batched(buf, *experts)).to(x.dtype)
+        processed = torch.cat([back, recv_tag[:, None].to(x.dtype)], dim=1)
+        processed = processed.reshape(recv.shape[0], -1, d + 1)
+        got = dfarm.combine(processed, info, group, backend=backend,
+                            wire_dtype=_wire(cfg))[:, :d]      # (slc*k, d)
+        my_out = (got.float().reshape(slc, k, d) * gates_in[mine][..., None]).sum(1)
+        z = lambda rows: torch.zeros((rows, d), dtype=torch.float32,
+                                     device=x.device)
+        out = torch.cat([z(me * slc), my_out, z((n - me - 1) * slc)])
+    if "shared" in params:
+        out = out + _shared_ffn(tok_in, params["shared"]).float()
+    # one sum adds disjoint expert contributions (ep) or partial d_ff
+    # slices (tp), in the model dtype
+    return psum_compat(out.to(x.dtype), group)
+
+
+def moe_apply(x: torch.Tensor, params, cfg: ModelConfig, *,
+              axis_name: Optional[Group] = None,
+              backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply the MoE block to x (B, S, d).
+
+    Returns (out in x's dtype, aux_loss f32 scalar).  ``backend`` defaults
+    to ``cfg.moe_backend``.  With ``axis_name=None``, one device: the
+    reference's ``moe_apply(..., axis_name=None)``; ``local_gather`` takes
+    the grouped dispatch, ``dense`` the oracle.  With ``axis_name`` the
+    model :class:`~repro_torch.core.ranks.Group` (x replicated over it,
+    ``params`` this rank's shard, the ``"dp"`` dims gathered), the mesh
+    path of ``local_gather``, ``a2a`` or ``ring``."""
     backend = backend or cfg.moe_backend
-    if axis_name is not None or backend in _MESH_BACKENDS:
-        raise NotImplementedError(
-            f"moe_apply over a mesh (axis_name={axis_name!r}, backend="
-            f"{backend!r}): {_LATER}")
-    if backend not in ("local_gather", "dense"):
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown moe backend {backend!r}")
+    if axis_name is not None and not isinstance(axis_name, Group):
+        raise ValueError(f"moe_apply over a mesh takes the model Group "
+                         f"(repro_torch.core.ranks.Group, inside a rank "
+                         f"job) as axis_name, got {axis_name!r}")
+    if axis_name is None and backend in _MESH_BACKENDS:
+        raise ValueError(f"the {backend} MoE backend exchanges tokens over "
+                         f"the model Group: pass it as axis_name")
+    if axis_name is not None and backend == "dense":
+        raise ValueError("the dense MoE oracle runs on one device "
+                         "(axis_name=None)")
     B, S, d = x.shape
     tokens = x.reshape(-1, d)
     gates, ids, probs = _route(tokens, params["router"], cfg.top_k)
     aux = router_aux_loss(probs, ids, cfg.n_experts)
+    if axis_name is not None:
+        out = _moe_mesh(x, tokens, params, gates, ids, cfg, axis_name, backend)
+        return out.reshape(B, S, d), aux
     combine = _moe_dense if backend == "dense" else _moe_grouped
     out = combine(tokens, params, gates, ids, cfg)
     if "shared" in params:

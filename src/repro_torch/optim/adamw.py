@@ -18,6 +18,13 @@ temporaries are small, and walking it would cost launches, not memory
 projections, walked by their first axis, took 7680 slices and ~4.6 s of
 host time a step).  The arithmetic is elementwise, so the walk does not
 change it.
+
+Under a sharded mesh context (``repro_torch.parallel.context``) the
+leaves are this rank's shards and ``specs`` (``params_pspecs``) must be
+given: the global norm counts each element once — a leaf replicated over
+a group adds its square sum divided by the group's size — and the total
+is summed over the model group, then the data group.  The update itself
+is elementwise, so each rank updates its shards in place.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import Any, Dict, Iterator, NamedTuple, Tuple, Union
 
 import torch
 
+from ..core.dchannel import all_reduce
+from ..parallel.context import DP, MP, sharded_ctx
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm"]
@@ -59,20 +68,44 @@ def adamw_init(params: Tree, moment_dtype: torch.dtype = torch.float32) -> AdamW
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def _global_norm(grads: Tree) -> torch.Tensor:
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
     total = None
-    for g in tree_leaves(grads):
-        for sl in _slices(g):
-            part = torch.sum(torch.square(sl.float()))
+    for sl in _slices(g):
+        part = torch.sum(torch.square(sl.float()))
+        total = part if total is None else total + part
+    return total
+
+
+def _global_norm(grads: Tree, specs: Any = None) -> torch.Tensor:
+    ctx = sharded_ctx()
+    if ctx is None:
+        total = None
+        for g in tree_leaves(grads):
+            part = _square_sum(g)
             total = part if total is None else total + part
-    return torch.sqrt(total)
+        return torch.sqrt(total)
+    if specs is None:
+        raise ValueError("the global norm of sharded gradients needs their "
+                         "sharding tokens (specs=params_pspecs(...))")
+    total = None
+    for g, toks in tree_leaves(tree_map(lambda g, t: (g, t), grads, specs)):
+        toks = toks or ()
+        copies = (1 if MP in toks else ctx.mp_size) * \
+            (1 if DP in toks else ctx.dp_size)     # ranks holding each element
+        part = _square_sum(g) / copies
+        total = part if total is None else total + part
+    total = all_reduce(all_reduce(total.reshape(1), ctx.model), ctx.data)
+    return torch.sqrt(total[0])
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        specs: Any = None) -> Tuple[Tree, torch.Tensor]:
     """Scale ``grads`` in place so their global norm is at most
     ``max_norm`` (each leaf in f32, cast back to its dtype).  Returns
-    (grads, the norm before clipping) as f32 on the leaves' device."""
-    gn = _global_norm(grads)
+    (grads, the norm before clipping) as f32 on the leaves' device.
+    ``specs``: the leaves' sharding tokens, required under a sharded
+    mesh context."""
+    gn = _global_norm(grads, specs)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         for sl in _slices(g):
@@ -82,12 +115,13 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tenso
 
 def adamw_update(params: Tree, grads: Tree, state: AdamWState, *,
                  lr: Any, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1,
-                 max_grad_norm: float = 1.0) -> Tuple[Tree, AdamWState, dict]:
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 specs: Any = None) -> Tuple[Tree, AdamWState, dict]:
     """One AdamW step, in place on ``params``, ``state`` and ``grads``
     (clipped first).  Returns (params, state, {"grad_norm"}) with the
-    same objects, as the reference returns its new ones."""
-    grads, gn = clip_by_global_norm(grads, max_grad_norm)
+    same objects, as the reference returns its new ones.  ``specs`` as
+    :func:`clip_by_global_norm`'s."""
+    grads, gn = clip_by_global_norm(grads, max_grad_norm, specs)
     state.step.add_(1)
     step = state.step.float()
     c1 = 1.0 - torch.pow(b1, step)

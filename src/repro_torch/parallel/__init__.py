@@ -1,6 +1,9 @@
-"""The port's parallel layer: ring attention over a group of rank
-processes (``repro_torch.core.ranks``).  The rest of the reference's
-``repro.parallel`` (``context``, ``rules``) is ROADMAP §1 item 11."""
+"""The port's parallel layer (counterpart of ``repro.parallel``): the mesh
+context and its sharding rules, the sharded model's collectives over the
+rank groups of ``repro_torch.core.ranks``, and ring attention."""
+from .context import MeshCtx, current_ctx, manual_model, mesh_context, shard
+from . import rules
 from .ring_attention import ring_attention, ring_attention_plain
 
-__all__ = ["ring_attention", "ring_attention_plain"]
+__all__ = ["MeshCtx", "current_ctx", "mesh_context", "shard", "manual_model",
+           "ring_attention", "ring_attention_plain", "rules"]

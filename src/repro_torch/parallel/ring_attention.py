@@ -28,7 +28,9 @@ it returns the local output shard.
 * :func:`ring_attention_plain` is the reference's hop — the model's
   ``_chunk_body`` over every block, masked — in eager PyTorch.
 
-No gradient: ring attention's backward is ROADMAP §1 item 11.
+No gradient yet: with grad mode on and any of q, k, v requiring one,
+both paths raise ``NotImplementedError`` (ROADMAP §1 item 11 step 6)
+rather than return a detached result.
 """
 from __future__ import annotations
 
@@ -44,11 +46,21 @@ from ..models.attention import _NEG, _chunk_body, _repeat_kv
 __all__ = ["ring_attention", "ring_attention_plain"]
 
 
+def _refuse_grad(*ts: torch.Tensor) -> None:
+    """Raise if autograd would need the ring's gradient: the ring runs
+    under ``no_grad`` and its result would come back detached."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "ring_attention carries no gradient yet (ROADMAP §1 item 11 "
+            "step 6); run it under torch.no_grad() or detach q, k and v")
+
+
 def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, group: Group, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
     """q (B, S_loc, H, Dh); k/v (B, S_loc, Hkv, Dh), sequence-sharded over
     ``group``.  Returns (B, S_loc, H, Dh) in q's dtype."""
+    _refuse_grad(q, k, v)
     B, s_loc, H, Dh = q.shape
     n, me = group.size, group.rank
     groups = H // k.shape[2]
@@ -95,6 +107,7 @@ def _ring_fa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              ) -> torch.Tensor:
     """:func:`ring_attention` through the flash-attention wrapper: the
     kernel on CUDA tensors (its plain version on CPU ones)."""
+    _refuse_grad(q, k, v)
     B, s_loc, H, Dh = q.shape
     n, me = group.size, group.rank
     dev = q.device

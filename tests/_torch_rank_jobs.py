@@ -157,3 +157,163 @@ def fail_on_rank_one(x):
     if dist.get_rank() == 1:
         raise ValueError("worker failed on rank 1")
     return x
+
+
+# -- the sharded model -------------------------------------------------------
+def _mesh(mesh_shape):
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.context import mesh_context
+    return mesh_context(make_test_mesh(*mesh_shape))
+
+
+def sharded_loss(ctx, cfg, params, batch, mesh_shape, grads):
+    """``loss_fn`` (and with ``grads`` the gradients, gathered to full
+    leaves) of the full ``params`` and ``batch`` cut onto this rank of a
+    (data, model) mesh, on the rank's device: (loss, ce, aux, full
+    gradients on the host, on rank 0)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+    from repro_torch.tree import tree_map
+    B = next(iter(batch.values())).shape[0]
+    here = lambda tree: tree_map(lambda t: t.to(ctx.device), tree)  # noqa: E731
+    with _mesh(mesh_shape) as mc:
+        plan = rules.param_shardings(mc, cfg)
+        local = here(rules.shard_tree(params, plan))
+        rows = here(rules.shard_tree(batch, rules.batch_shardings(mc, cfg, B)))
+        full = None
+        if grads:
+            loss, metrics, g = loss_and_grads(local, rows, cfg)
+            full = tree_map(lambda t: t.cpu(), rules.gather_tree(g, plan))
+        else:
+            with torch.no_grad():
+                loss, metrics = M.loss_fn(local, rows, cfg)
+    return (float(loss), float(metrics["ce"]), float(metrics["aux"]),
+            full if ctx.rank == 0 else None)
+
+
+def sharded_ffn(ctx, cfg, block, x, mesh_shape, grads=False):
+    """``model._ffn_part`` of one MoE block (``{"moe", "norm2"}``, full)
+    on this rank's rows of ``x`` under a (data, model) mesh: the output
+    rows gathered over the data group, the router loss; with ``grads``
+    also the block's gradients of the output's sum, gathered."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+    from repro_torch.parallel.context import fsdp_gather
+    from repro_torch.tree import tree_map
+    with _mesh(mesh_shape) as mc:
+        specs = M._attn_block_specs(cfg, mc.mp_size)
+        specs = {"moe": specs["moe"], "norm2": specs["norm2"]}
+        plan = rules.to_shardings(mc, specs)
+        local = rules.shard_tree(block, plan)
+        rows = rules.to_shardings(mc, ("dp", None, None))
+        xl = rows.shard(x)
+        full = None
+        if grads:
+            alias = tree_map(lambda t: t.detach().requires_grad_(), local)
+            out, aux = M._ffn_part(fsdp_gather(alias, specs), xl, cfg)
+            out.float().sum().backward()
+            g = tree_map(lambda t: t.grad, alias)
+            full = rules.gather_tree(g, plan)
+        else:
+            with torch.no_grad():
+                out, aux = M._ffn_part(fsdp_gather(local, specs), xl, cfg)
+        out = rows.gather(out.detach())
+    return out, float(aux.detach()), full
+
+
+def context_groups(ctx, mesh_args):
+    """The (data, model) groups ``mesh_context`` gives this rank, as
+    (ranks, index) pairs."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.context import mesh_context
+    with mesh_context(make_test_mesh(*mesh_args), dp_axes=(
+            ("pod", "data") if len(mesh_args) > 2 and mesh_args[2] else
+            ("data",))) as mc:
+        return ((mc.data.ranks, mc.data.rank), (mc.model.ranks, mc.model.rank),
+                mc.dp_size, mc.mp_size)
+
+
+def fsdp_gather_job(ctx, full, mesh_shape):
+    """``fsdp_gather`` of this rank's (dp, mp) shard of ``full``: the
+    gathered value, and the gradient its shard receives from the loss
+    sum((gathered * (rank + 1))), i.e. the sum over the data group of
+    (rank + 1) on the shard's own rows."""
+    from repro_torch.parallel import rules
+    from repro_torch.parallel.context import fsdp_gather
+    with _mesh(mesh_shape) as mc:
+        plan = rules.to_shardings(mc, ("dp", "mp"))
+        local = plan.shard(full).requires_grad_()
+        got = fsdp_gather(local, ("dp", "mp"))
+        (got * (ctx.rank + 1)).sum().backward()
+        return got.detach(), local.grad
+
+
+def region_job(ctx, x, mesh_shape):
+    """The two region operators on the model group: ``enter_model`` then a
+    rank-scaled product then ``psum_compat``: the value, and x's gradient
+    of its sum."""
+    from repro_torch.parallel.context import enter_model, psum_compat
+    with _mesh(mesh_shape) as mc:
+        x = x.clone().requires_grad_()
+        part = enter_model(x, mc.model) * (mc.model.rank + 1)
+        out = psum_compat(part, mc.model)
+        out.sum().backward()
+        return out.detach(), x.grad
+
+
+def refused_entry_points(ctx, cfg, params, batch, mesh_shape):
+    """``prefill``/``decode_step`` under a mesh of more than one rank: the
+    text of what each raised."""
+    from repro_torch.models import model as M
+    out = []
+    with _mesh(mesh_shape):
+        for fn in (lambda: M.prefill(params, batch, cfg),
+                   lambda: M.decode_step(params, batch, {}, 0, cfg)):
+            try:
+                fn()
+                out.append(None)
+            except NotImplementedError as e:
+                out.append(str(e))
+    return out
+
+
+def ef_int8(ctx, g, r):
+    """``ef_int8_psum`` over the world of this rank's row of ``g`` (a
+    tree {"g": ...}) with residual ``r``."""
+    from repro_torch.optim import ef_int8_psum
+    out, res = ef_int8_psum({"g": g[ctx.rank]}, {"g": r}, ctx.world_group)
+    return out["g"], res["g"]
+
+
+def shard_round_trip(ctx, cfg, params, mesh_shape):
+    """``shard_tree`` of the full ``params`` on this rank, then
+    ``gather_tree``: each leaf's local shape (by path) and the gathered
+    tree."""
+    from repro_torch.parallel import rules
+    from repro_torch.tree import tree_leaves_with_path
+    with _mesh(mesh_shape) as mc:
+        plan = rules.param_shardings(mc, cfg)
+        local = rules.shard_tree(params, plan)
+        shapes = {k: tuple(v.shape) for k, v in tree_leaves_with_path(local)}
+        return shapes, rules.gather_tree(local, plan)
+
+
+def ring_attention_grad(ctx, q, k, v, hop):
+    """The ring with q, k, v requiring grad: what it raised (the type's
+    name and text), or None."""
+    s = q.shape[1] // ctx.world
+    own = slice(ctx.rank * s, (ctx.rank + 1) * s)
+    q, k, v = (t[:, own].to(ctx.device).requires_grad_() for t in (q, k, v))
+    fn = {"plain": ra.ring_attention_plain, "auto": ra.ring_attention,
+          "fa": ra._ring_fa}[hop]
+    try:
+        fn(q, k, v, group=ctx.world_group, causal=True, window=None)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def echo_plus_rank(ctx, x):
+    """``x + rank``: a reply as large as the job's argument."""
+    return x + ctx.rank

@@ -385,7 +385,7 @@ def test_reduce_spec_matches_reference():
     assert reduce_by_key(N.mod3, N.keep_larger).reduce is None
 
 
-def test_mesh_lowering_of_a_shuffle_stays_refused():
+def test_mesh_shuffle_over_cpu_ranks_needs_gloo():
     """The keyed program runs on one device (tests/test_torch_mesh.py) or
     over rank processes (tests/test_torch_mesh_ranks.py); CPU ranks need
     an explicit ``transport="gloo"``, and with it the program spans two

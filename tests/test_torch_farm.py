@@ -187,7 +187,7 @@ def test_dead_worker_full_ring_raises_not_hangs():
 
 # -- a mesh over more than one device: rank processes, explicit transport ----
 @pytest.mark.parametrize("backend", ["mesh"])
-def test_later_backends_raise_lowering_error(backend):
+def test_mesh_over_cpu_ranks_needs_gloo(backend):
     """More than one device runs in rank processes; CPU ranks need an
     explicit ``transport="gloo"`` (tests/test_torch_mesh_ranks.py)."""
     with pytest.raises(LoweringError, match='transport="gloo"'):

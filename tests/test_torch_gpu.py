@@ -930,6 +930,55 @@ def test_ring_attention_kernel_hops_equal_the_plain_hop_on_card(dev, causal,
     assert rel.max() <= 1e-2, rel.max()
 
 
+def test_ring_attention_kernel_path_refuses_grad_on_card(dev):
+    """The kernel path (bf16 on the card) refuses q, k, v that require
+    grad, as the plain hop does, naming ROADMAP §1 item 11 step 6."""
+    import _torch_rank_jobs as J
+    from repro_torch.core import ranks
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    p = ranks.RankPool(2, device="cuda:0", transport="gloo")
+    try:
+        msgs = p.run(J.ring_attention_grad, q, k, v, "auto")
+        assert p.launches["fa"] == 0
+    finally:
+        p.close()
+    assert all(m is not None and "item 11 step 6" in m for m in msgs)
+
+
+def test_sharded_loss_and_grads_on_card_equal_one_device(dev):
+    """Four ranks on the card over gloo (a 2×2 mesh): the Phi-3 smoke
+    config's sharded loss and gathered f32 gradients, through the FA
+    kernels forward and backward, against the one-device ones on the
+    card: loss rtol 1e-5, each leaf within 1e-4 of its largest |g|."""
+    import _torch_rank_jobs as J
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import ranks
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    cfg = ARCHS["phi3-mini-3.8b"].smoke().replace(dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg, 4, 64)(0).items()}
+    p = ranks.RankPool(4, device="cuda:0", transport="gloo")
+    try:
+        loss, _, _, got = p.run(J.sharded_loss, cfg, params, batch, (2, 2),
+                                True)[0]
+        assert p.launches["fa"] > 0 and p.launches["fa_bwd"] > 0
+    finally:
+        p.close()
+    want_loss, _, want = loss_and_grads(
+        tree_map(lambda t: t.to(dev), params),
+        {k: v.to(dev) for k, v in batch.items()}, cfg)
+    np.testing.assert_allclose(loss, float(want_loss), rtol=1e-5)
+    for (k, a), (_, b) in zip(tree_leaves_with_path(got),
+                              tree_leaves_with_path(want)):
+        b = b.cpu()
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+
+
 def test_nccl_ranks_with_a_card_each(dev):
     """The NCCL transport, one card a rank: a ring hop and an all-reduce
     on the cards, nothing staged through the host.  Needs two cards."""

@@ -21,6 +21,8 @@ PORT_MODULES = [
     "repro_torch.core.dpipeline", "repro_torch.core.dfarm",
     "repro_torch.core.ranks", "repro_torch.core.dchannel",
     "repro_torch.parallel", "repro_torch.parallel.ring_attention",
+    "repro_torch.parallel.context", "repro_torch.parallel.rules",
+    "repro_torch.launch.mesh",
     "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",

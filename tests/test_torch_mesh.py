@@ -212,7 +212,7 @@ def test_grain_from_the_skeleton_aligns_rows():
 @pytest.mark.parametrize("opts", [{"devices": 2}, {"devices": 8},
                                   {"factorization": (1, 2)},
                                   {"factorization": (2, 1)}])
-def test_more_than_one_device_is_refused_naming_item_11(opts):
+def test_cpu_ranks_need_gloo_and_a_factorization_that_fits(opts):
     """More than one device runs in rank processes: on the CPU they need
     ``transport="gloo"`` (NCCL has no CPU ranks, and nothing switches the
     transport silently); a factorization over more devices than the one
@@ -239,7 +239,7 @@ def test_one_device_is_the_default_and_factorization_1_1_is_allowed():
     assert prog([3, 4]) == [N.g(N.f(3)), N.g(N.f(4))]
 
 
-def test_exchanges_over_more_than_one_worker_wait_for_item_11():
+def test_exchanges_over_more_than_one_worker_need_the_worker_group():
     """A worker axis of more than one is a rank group inside a rank job
     (``tests/test_torch_dchannel.py``); a bare count above one names no
     ranks to exchange with, and ``pipeline_apply`` needs its stage group."""

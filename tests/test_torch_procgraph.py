@@ -196,7 +196,7 @@ def test_run_report_and_monitor_on_procs(opt):
             assert vals == sorted(vals) and vals[-1] == len(xs), (key, vals)
 
 
-def test_mesh_stays_refused():
+def test_mesh_over_two_cpu_ranks_needs_gloo():
     """The mesh program over two devices runs in rank processes, and on
     the CPU it needs the transport named (tests/test_torch_mesh_ranks.py)."""
     with pytest.raises(LoweringError, match='transport="gloo"'):

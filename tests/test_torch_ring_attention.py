@@ -136,3 +136,14 @@ def test_window_case_has_hops_with_no_visible_key(data):
     qpos = np.arange(s_loc) + s_loc
     seen = (kpos[None, :] > qpos[:, None] - window).any(axis=1)
     assert seen[:4].all() and not seen[-1]
+
+
+@pytest.mark.parametrize("hop", ["plain", "auto", "fa"])
+def test_inputs_that_require_grad_are_refused(pool, data, hop):
+    """Ring attention carries no gradient yet: with q, k, v requiring one,
+    both paths (the plain hop, and the flash-attention hops through the
+    wrapper's plain version here) raise naming ROADMAP §1 item 11 step 6
+    instead of returning a detached result."""
+    q, k, v = (torch.from_numpy(data["causal" + x]) for x in "qkv")
+    for msg in pool.run(J.ring_attention_grad, q, k, v, hop):
+        assert msg is not None and "item 11 step 6" in msg
