@@ -147,7 +147,24 @@ Phases, each on lines of its own; any failed check exits non-zero:
       steps against one-device ``train``; FA and SSD launches gathered from
       the ranks.  Then no rank process, rank store or ``/dev/shm`` entry of
       a rank left.  Its times too are one card shared by 4 processes;
-  15. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+  15. serving and gradients over the mesh, and the dry run, on the same 4
+      ranks: (a) ring attention's gradient (``RingAttentionFn``, the FA
+      backward kernel each hop of a second ring) at Phi-3-mini's attention
+      width — causal and window 512 at S=2048 against the one-device
+      float32 ``fa_backward_plain`` (row-wise relative L2 within
+      ``RING_REL_TOL``, 10 FA backward launches a ring, three planted
+      faults that must fail), and S=16384 against the one-device bf16
+      ``flash_attention`` gradient, with the backward ring's time split;
+      (b) sharded ``prefill`` and ``decode_step`` on the 2×2 mesh of
+      Phi-3-mini (2 layers) and Mamba2-130M (whole), bf16 (4 × 2048, 8
+      steps) and f32 (4 × 512, 4 steps), each rank's logits rows and the
+      gathered cache against one device, and a planted fault; (c) the
+      dry run's accounting (``launch.dryrun._account``) of a Phi-3 train
+      and decode cell on the 2×2 mesh over gloo, whose argument bytes and
+      collective tally must equal the real ranks'; (d) the dry run's
+      production table (80 records, the meta device).  Times are one card
+      shared by 4 processes;
+  16. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -1458,10 +1475,11 @@ def prefill_split(prof):
 
 
 def _pad_cache(cache, n):
-    """A prefill's cache with ``n`` empty rows after its last, for decode
-    steps past it (the reference's caches are allocated at max_len)."""
+    """A prefill's cache with ``n`` empty rows after its last in each k/v
+    leaf (an SSM state as it is), for decode steps past it (the
+    reference's caches are allocated at max_len)."""
     return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n))
-            for k, v in cache.items()}
+            if k in ("k", "v") else v for k, v in cache.items()}
 
 
 def family_main_path(dev, arch, run):
@@ -3258,12 +3276,13 @@ def ring_attention_job(ctx, S, window, keep_out):
     return res
 
 
-def _faulty_ring_module(ra, fault):
-    """``ring_attention.py`` with the planted fault ``fault`` substituted
-    into its text, as a module of its own beside the real one."""
+def _faulty_ring_module(ra, fault, faults=None):
+    """``ring_attention.py`` with the planted fault ``fault`` (of
+    ``faults``, ``RING_FAULTS`` by default) substituted into its text, as
+    a module of its own beside the real one."""
     import inspect
     import types
-    old, new = RING_FAULTS[fault]
+    old, new = (RING_FAULTS if faults is None else faults)[fault]
     src = inspect.getsource(ra)
     if src.count(old) != 1:
         raise RuntimeError(f"planted fault {fault!r}: {old!r} is not once "
@@ -3522,8 +3541,9 @@ def phase_ranks(dev, sw, ops, core, ctx, runs, db, queries, wants, smi_line):
 
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # phase 14 on the same ranks
+    # phases 14 and 15 on the same ranks
     sharded = phase_sharded_model(pool, dev, label)
+    meshed = phase_mesh_serving(pool, dev, label)
 
     pids = pool.pids
     ranks.shutdown()
@@ -3531,9 +3551,10 @@ def phase_ranks(dev, sw, ops, core, ctx, runs, db, queries, wants, smi_line):
     check(not left, f"the ranks left behind: {left}")
     hosts = _rank_hosts()
     check(not hosts, f"rank processes still running: {hosts}")
-    print(f"phases 13-14: no rank process, rank store or /dev/shm entry of a "
+    print(f"phases 13-15: no rank process, rank store or /dev/shm entry of a "
           f"rank left; {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"sw": sw_launches, "fa": fa_launches, "sharded": sharded}
+    return {"sw": sw_launches, "fa": fa_launches, "sharded": sharded,
+            "meshed": meshed}
 
 
 # ---------------------------------------------------------------------------
@@ -3589,15 +3610,16 @@ def _shard_batch(cfg, B, S, dev, mc=None):
 
 
 @contextlib.contextmanager
-def _planted(fault):
-    """The module of ``fault`` with its substitution executed into it (its
-    functions resolve their globals there), undone on exit."""
+def _planted(fault, faults=None):
+    """The module of ``fault`` (of ``faults``, ``SHARD_FAULTS`` by default)
+    with its substitution executed into it (its functions resolve their
+    globals there), undone on exit."""
     if fault is None:
         yield
         return
     import importlib
     import inspect
-    name, old, new = SHARD_FAULTS[fault]
+    name, old, new = (SHARD_FAULTS if faults is None else faults)[fault]
     mod = importlib.import_module(name)
     src = inspect.getsource(mod)
     if src.count(old) != 1:
@@ -3959,6 +3981,527 @@ def phase_sharded_model(pool, dev, label):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving and gradients over the mesh, and the dry run
+# ---------------------------------------------------------------------------
+# The same 4 ranks on cuda:0 over gloo: ring attention's gradient at
+# Phi-3-mini's attention width, sharded prefill and decode on the 2×2
+# mesh, the dry run's accounting against the real ranks, and the
+# production table of the dry run (the meta device: it touches no card).
+# One card time-sliced by 4 processes: no time here is a multi-GPU speed.
+RING_GRAD_CHECKS = [None, 512]     # windows of the S=2048 checks (causal)
+RING_GRAD_S = 2048
+RING_GRAD_BIG = RING_S             # phase 13's shape, 4096 a rank
+RING_GRAD_SEED = 17                # dO's generator
+RING_GRAD_HOPS = RANKS * (RANKS + 1) // 2   # FA backward launches a causal ring
+# Planted faults of the backward ring, each a substitution in
+# ring_attention.py's text, run in the ranks beside the real module: each
+# must fail the S=2048 causal check.
+RING_GRAD_FAULTS = {
+    "each hop's own statistics": (
+        "st = stats      # the global m and 1/l: P is the ring's probability",
+        "st = fa.fa_forward_with_stats(qt, kt, vt, causal=causal, "
+        "window=window, q_offset=off)[1]"),
+    "dk, dv left one hop short of their owner": (
+        "dk, dv = ring_send(acc, group)      # home: the accumulators' n-th send",
+        "dk, dv = acc"),
+    "Δ from the hop's partial output": (
+        "oh = ot         # the ring's output: Δ = rowsum(do ∘ o) is global",
+        "oh = fa.fa_forward_with_stats(qt, kt, vt, causal=causal, "
+        "window=window, q_offset=off)[0]"),
+}
+SERVE_ARCHS = {"phi3-mini-3.8b": 2, "mamba2-130m": None}   # arch: layers (None: all)
+SERVE_BF16 = dict(batch=4, seq=2048, steps=8)
+SERVE_F32 = dict(batch=4, seq=512, steps=4)
+SERVE_BF16_TOL = 2e-2          # row-wise relative L2, logits and cache
+SERVE_F32_TOL = 1e-4           # of each logits row's max |.|
+SERVE_SEED = 23
+SERVE_FAULTS = {
+    "attention output's model-group sum left out": (
+        "repro_torch.models.model",
+        "        out = psum_compat(out, ctx.model)\n    return out, new_cache",
+        "        out = out\n    return out, new_cache"),
+}
+ACCOUNT_CELLS = {"train": (4, 1024), "decode": (4, 2048)}   # kind: (B, S)
+DRY_CELLS = (66, 14)           # LOWERED and SKIP records of the 80
+
+
+def _ring_do(S, dev):
+    """The output gradient dO of the ring at sequence length S (a seeded
+    generator on the card, the same in every process)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[RING_ARCH]
+    gen = torch.Generator(device=dev).manual_seed(RING_GRAD_SEED)
+    return torch.randn((RING_B, S, cfg.n_heads, cfg.head_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def ring_grad_job(ctx, S, window, fault=None, split=False):
+    """Phase 15 (a), in each rank: this rank's shard through
+    ``ring_attention`` with q, k, v requiring grad (``RingAttentionFn``),
+    then the backward of (out · dO).sum(): forward and backward timed, the
+    gradients on the host.  ``fault`` runs a planted fault's module;
+    ``split`` also times the backward's hops through the kernel alone and
+    its exchanges alone."""
+    import importlib
+    from repro_torch.core import dchannel
+    from repro_torch.kernels import flash_attention as fa
+    ra = importlib.import_module("repro_torch.parallel.ring_attention")
+    if fault is not None:
+        ra = _faulty_ring_module(ra, fault, RING_GRAD_FAULTS)
+    before = (fa.launch_count(), fa.bwd_launch_count())
+    grp, s, me = ctx.world_group, S // ctx.world, ctx.rank
+    q, k, v = (t.requires_grad_() for t in _ring_shard(ctx, S))
+    do = _ring_do(S, ctx.device)[:, me * s:(me + 1) * s].contiguous()
+    staged = ctx.staged
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ra.ring_attention(q, k, v, group=grp, causal=True, window=window)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.backward(out, do)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = {"fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3,
+           "staged": ctx.staged - staged,
+           # the ring's own launches (the split's timing calls come after)
+           "fa": fa.launch_count() - before[0],
+           "fa_bwd": fa.bwd_launch_count() - before[1],
+           "grads": [t.grad.cpu() for t in (q, k, v)],
+           "finite": all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))}
+    if split:
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        with torch.no_grad():
+            o, stats = ra._ring_merge(qd, kd, vd, group=grp, causal=True,
+                                      window=window)
+            qt, ot, dot = (t.transpose(1, 2) for t in (qd, o, do))
+            kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for src in range(me + 1):
+                ra._bwd_hop(qt, kt, vt, ot, dot, stats, causal=True,
+                            window=window, q_offset=(me - src) * s)
+            torch.cuda.synchronize()
+            res["kernels_ms"] = (time.perf_counter() - t0) * 1e3
+            acc = (torch.zeros(kd.shape, device=kd.device),
+                   torch.zeros(vd.shape, device=vd.device))
+            block, staged = (kd, vd), ctx.staged
+            t0 = time.perf_counter()
+            for h in range(ctx.world):
+                arrive = dchannel.ring_post(block, grp) \
+                    if h + 1 < ctx.world else None
+                acc = dchannel.ring_send(acc, grp)
+                if arrive is not None:
+                    block = arrive()
+            torch.cuda.synchronize()
+            res["exchange_ms"] = (time.perf_counter() - t0) * 1e3
+            res["exchange_staged"] = ctx.staged - staged
+    return res
+
+
+def _ring_grad_reference(S, window, dev, fa):
+    """The one-device gradients of (out · dO).sum() on the card, as
+    (B, S, H, D) float32 on the host: at S=2048 ``fa_backward_plain`` in
+    float32 on the bf16 inputs (with ``fa_plain``'s output), at the big
+    shape the bf16 ``flash_attention`` through ``FlashAttentionFn``."""
+    q, k, v = _ring_inputs(S, dev)
+    do = _ring_do(S, dev)
+    if S == RING_GRAD_BIG:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = fa.flash_attention(qt, kt, vt, causal=True, window=window)
+        torch.autograd.backward(out, do.transpose(1, 2))
+        grads = [t.grad for t in (qt, kt, vt)]
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        qt, kt, vt, dot = (t.float().transpose(1, 2) for t in (q, k, v, do))
+        o = fa.fa_plain(qt, kt, vt, causal=True, window=window)
+        grads = fa.fa_backward_plain(qt, kt, vt, o, dot, causal=True,
+                                     window=window)
+    return [g.transpose(1, 2).float().cpu() for g in grads]
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _ring_grad_errs(out, want):
+    """The gathered gradients of ``ring_grad_job``'s replies against
+    ``want`` by phase 10's rule for bf16 gradients: for dq, dk, dv, max
+    |diff| over max |want| and the relative L2 of the whole tensor (each
+    must be within ``BF16_GRAD_REL``), and the worst row's relative L2
+    (printed: rows whose gradient nearly cancels have a norm near 0)."""
+    errs = []
+    for i in range(3):
+        got = torch.cat([o["grads"][i] for o in out], dim=1).float()
+        errs.append({"max": float((got - want[i]).abs().max()
+                                  / want[i].abs().max()),
+                     "l2": _rel_l2(got, want[i]),
+                     "row": _ring_error(got, want[i])["row_max"]})
+    return errs
+
+
+def _worst(errs):
+    return max(max(e["max"], e["l2"]) for e in errs)
+
+
+def _fmt_errs(errs):
+    return ", ".join(f"d{n} {e['max']:.3e} / {e['l2']:.3e} (worst row "
+                     f"{e['row']:.3e})" for n, e in zip("qkv", errs))
+
+
+def phase_ring_gradient(pool, dev, where, label):
+    """Phase 15 (a): ring attention's gradient at Phi-3-mini's attention
+    width over the 4 ranks.  Returns the FA forward and backward launches
+    the ranks made."""
+    from repro_torch.kernels import flash_attention as fa
+    launches = {"fa": 0, "fa_bwd": 0}
+    sound = {}
+    for window in RING_GRAD_CHECKS:
+        want = _ring_grad_reference(RING_GRAD_S, window, dev, fa)
+        pool.reset_counts()
+        out = pool.run(ring_grad_job, RING_GRAD_S, window)
+        counts = dict(pool.launches)
+        check(counts["fa_bwd"] == RING_GRAD_HOPS,
+              f"ring backward at S={RING_GRAD_S} window {window} launched "
+              f"{counts['fa_bwd']} FA backward kernels in the ranks, expected "
+              f"{RING_GRAD_HOPS}")
+        for k in launches:
+            launches[k] += counts[k]
+        errs = _ring_grad_errs(out, want)
+        sound[window] = _worst(errs)
+        check(all(o["finite"] for o in out) and sound[window] <= BF16_GRAD_REL,
+              f"ring gradients at S={RING_GRAD_S} window {window}: "
+              f"{_fmt_errs(errs)} (limit {BF16_GRAD_REL})")
+        print(f"phase 15 (a) ring attention gradient ({where}): {RING_ARCH}'s "
+              f"attention, B={RING_B} S={RING_GRAD_S} causal window {window} "
+              f"bf16: dq, dk, dv of (out · dO).sum() gathered against the "
+              f"one-device float32 fa_backward_plain, max |diff| / max |plain| "
+              f"and relative L2 {_fmt_errs(errs)} (limit {BF16_GRAD_REL} each, "
+              f"phase 10's bf16 gradient rule); FA backward launches from the "
+              f"ranks {counts['fa_bwd']} (1+2+3+4), forward {counts['fa']}; ms "
+              f"by rank forward {json.dumps([round(o['fwd_ms'], 2) for o in out])}"
+              f", backward {json.dumps([round(o['bwd_ms'], 2) for o in out])}"
+              f"; {label}", flush=True)
+        del out, want
+
+    # the planted faults of the backward ring, against the causal check
+    want = _ring_grad_reference(RING_GRAD_S, None, dev, fa)
+    faults = {}
+    for fault in RING_GRAD_FAULTS:
+        out = pool.run(ring_grad_job, RING_GRAD_S, None, fault)
+        faults[fault] = _worst(_ring_grad_errs(out, want))
+        check(faults[fault] > BF16_GRAD_REL, f"planted fault {fault!r} passes "
+              f"the ring gradient check ({faults[fault]:.3e} <= {BF16_GRAD_REL})")
+    weakest = min(faults, key=faults.get)
+    print(f"phase 15 (a) ring gradient planted faults at S={RING_GRAD_S} "
+          f"causal, worst of max |diff| / max |plain| and relative L2: sound "
+          f"{sound[None]:.3e}; " + ", ".join(
+              f"'{k}' {v:.3e}" for k, v in faults.items())
+          + f"; weakest '{weakest}' {faults[weakest]:.3e} (limit "
+          f"{BF16_GRAD_REL}); {label}", flush=True)
+    del want
+
+    # phase 13's shape against the one-device bf16 FA gradient
+    want = _ring_grad_reference(RING_GRAD_BIG, None, dev, fa)
+    free_device_memory()
+    out = pool.run(ring_grad_job, RING_GRAD_BIG, None, None, True)
+    counts = {k: sum(o[k] for o in out) for k in ("fa", "fa_bwd")}
+    errs = [_rel_l2(torch.cat([o["grads"][i] for o in out], dim=1), want[i])
+            for i in range(3)]
+    del want
+    check(counts["fa_bwd"] == RING_GRAD_HOPS,
+          f"ring backward at S={RING_GRAD_BIG} launched {counts['fa_bwd']} FA "
+          f"backward kernels in the ranks, expected {RING_GRAD_HOPS}")
+    check(all(o["finite"] for o in out) and max(errs) <= RING_REL_TOL,
+          f"ring gradients at S={RING_GRAD_BIG}: relative L2 {errs} against "
+          f"the one-device bf16 FlashAttentionFn gradient (limit "
+          f"{RING_REL_TOL})")
+    for k in launches:
+        launches[k] += counts[k]
+    print(f"phase 15 (a) ring attention gradient ({where}): B={RING_B} "
+          f"S={RING_GRAD_BIG} ({RING_GRAD_BIG // RANKS} a rank) causal bf16: "
+          f"relative L2 against the one-device bf16 flash_attention gradient "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(("dq", "dk", "dv"), errs))
+          + f" (limit {RING_REL_TOL}); FA backward launches {counts['fa_bwd']}"
+          f"; ms per backward ring by rank "
+          f"{json.dumps([round(o['bwd_ms'], 2) for o in out])} (forward "
+          f"{json.dumps([round(o['fwd_ms'], 2) for o in out])}); split by "
+          f"rank: the rank's backward hops through the kernel alone "
+          f"{json.dumps([round(o['kernels_ms'], 3) for o in out])} ms, the "
+          f"blocks and accumulators circulating with no body "
+          f"{json.dumps([round(o['exchange_ms'], 2) for o in out])} ms "
+          f"({out[0]['exchange_staged']} host moves); {label}", flush=True)
+    return launches
+
+
+def _serve_inputs(cfg, B, S, steps, dev):
+    """The prompt (B, S) and each decode step's tokens (B, 1), from a
+    seeded generator on the card (the same in every process)."""
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    tok = lambda s: {"tokens": torch.randint(  # noqa: E731
+        0, cfg.vocab_size, (B, s), generator=gen, device=dev)}
+    return tok(S), [tok(1) for _ in range(steps)]
+
+
+def _serve(M, params, cfg, prompt, steps, S, cut=lambda b: b):
+    """``prefill`` then a ``decode_step`` for each of ``steps``, timed:
+    (logits of every call, cache, prefill ms, ms of each decode step)."""
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(params, cut(prompt), cfg)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        cache = _pad_cache(cache, len(steps))
+        outs, dec_ms = [logits], []
+        for t, step in enumerate(steps):
+            t0 = time.perf_counter()
+            logits, cache = M.decode_step(params, cut(step), cache, S + t, cfg)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits)
+    return outs, cache, pre_ms, dec_ms
+
+
+def serve_job(rctx, cfg, B, S, steps, fault=None):
+    """Phase 15 (b), in each rank: ``prefill`` then ``steps`` decode steps
+    of this rank's shards and rows on the 2×2 mesh, timed; its logits
+    rows of every call on the host, and the cache gathered to rank 0."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+    dev = rctx.device
+    with _planted(fault, SERVE_FAULTS), _mesh_ctx() as mc:
+        local, _ = _local_params(mc, cfg, dev)
+        prompt, step_in = _serve_inputs(cfg, B, S, steps, dev)
+        plan = rules.batch_shardings(mc, cfg, B)
+        cut = lambda b: rules.shard_tree(b, {k: plan[k] for k in b})  # noqa: E731
+        staged = rctx.staged
+        outs, cache, pre_ms, dec_ms = _serve(M, local, cfg, prompt, step_in,
+                                             S, cut)
+        res = {"logits": [o.float().cpu() for o in outs], "prefill_ms": pre_ms,
+               "decode_ms": dec_ms, "staged": rctx.staged - staged,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "rows": (mc.data.rank * (B // mc.dp_size),
+                        (mc.data.rank + 1) * (B // mc.dp_size))}
+        full = rules.gather_cache(cfg, cache, mc, B)
+        if rctx.rank == 0:
+            res["cache"] = {k: v.cpu() for k, v in full.items()}
+    return res
+
+
+def _row_max_rel(got, want):
+    """The largest |got - want| of a row over its row's largest |want|."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return float((d / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def phase_sharded_serving(pool, dev, where, label):
+    """Phase 15 (b): sharded ``prefill`` and ``decode_step`` of Phi-3-mini
+    (2 layers) and Mamba2-130M (whole) on the 2×2 mesh, bf16 and f32,
+    against one device on the card, and a planted fault.  Returns the FA
+    and SSD launches the ranks made."""
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    launches = {"fa": 0, "ssd": 0}
+    for arch, layers in SERVE_ARCHS.items():
+        for run, dtype in ((SERVE_BF16, "bfloat16"), (SERVE_F32, "float32")):
+            cfg = _shard_cfg(arch, layers, dtype=dtype)
+            B, S, steps = run["batch"], run["seq"], run["steps"]
+            params = init_params(cfg, SHARD_SEED, device=dev)
+            prompt, step_in = _serve_inputs(cfg, B, S, steps, dev)
+            want, want_cache, pre_ms, dec_ms = _serve(M, params, cfg, prompt,
+                                                      step_in, S)
+            want = [w.float().cpu() for w in want]
+            want_cache = {k: v.cpu() for k, v in want_cache.items()}
+            del params, prompt, step_in
+            free_device_memory()
+            pool.reset_counts()
+            out = pool.run(serve_job, cfg, B, S, steps)
+            counts = dict(pool.launches)
+            for k in launches:
+                launches[k] += counts[k]
+            errs = []
+            for o in out:
+                lo, hi = o["rows"]
+                for g, w in zip(o["logits"], want):
+                    errs.append(_row_rel(g, w[lo:hi]) if dtype == "bfloat16"
+                                else _row_max_rel(g, w[lo:hi]))
+            tol = SERVE_BF16_TOL if dtype == "bfloat16" else SERVE_F32_TOL
+            # bf16: row-wise relative L2; f32: max |diff| over max |entry|
+            # of each leaf (an SSM state row can decay to a norm near 0)
+            c_err = max(_row_rel(out[0]["cache"][k], want_cache[k])
+                        if dtype == "bfloat16" else
+                        float((out[0]["cache"][k].float() - want_cache[k].float())
+                              .abs().max() / want_cache[k].float().abs().max())
+                        for k in want_cache)
+            kern = "fa" if cfg.family != "ssm" else "ssd"
+            check(counts[kern] > 0, f"sharded {arch} serving launched "
+                  f"{counts} in the ranks; expected {kern} launches")
+            check(max(errs) <= tol, f"sharded {arch} {dtype} logits: "
+                  f"{max(errs)} > {tol}")
+            if dtype == "bfloat16":
+                check(c_err <= tol, f"sharded {arch} bf16 cache: {c_err} > {tol}")
+            what = ("row-wise relative L2" if dtype == "bfloat16" else
+                    "max |diff| of a row over its max |logit|")
+            print(f"phase 15 (b) sharded serving {arch} full width, "
+                  f"{cfg.n_layers} layers, {dtype} ({where}): prefill {B} x "
+                  f"{S} then {steps} decode steps, each rank's logits rows "
+                  f"against one device: worst {what} {max(errs):.3e} (limit "
+                  f"{tol}); gathered cache "
+                  f"{'row-wise relative L2' if dtype == 'bfloat16' else 'max |diff| / max |entry|'}"
+                  f" {c_err:.3e}; "
+                  f"{kern.upper()} launches from the ranks {counts[kern]}; ms "
+                  f"per prefill by rank "
+                  f"{json.dumps([round(o['prefill_ms'], 1) for o in out])} "
+                  f"(one device {pre_ms:.1f}), ms per decode step by rank "
+                  f"{json.dumps([round(sum(o['decode_ms']) / steps, 1) for o in out])}"
+                  f" (one device {sum(dec_ms) / steps:.1f}); host moves per "
+                  f"decode step a rank ~{out[0]['staged'] / (steps + 1):.0f} "
+                  f"(prefill included); peak GB by rank "
+                  f"{json.dumps([round(o['peak_gb'], 3) for o in out])}; "
+                  f"{label}", flush=True)
+            if arch == "phi3-mini-3.8b" and dtype == "float32":
+                for fault in SERVE_FAULTS:
+                    bad = pool.run(serve_job, cfg, B, S, steps, fault)
+                    f_err = max(_row_max_rel(g, w[o["rows"][0]:o["rows"][1]])
+                                for o in bad for g, w in zip(o["logits"], want))
+                    check(f_err > tol, f"planted fault {fault!r} passes the "
+                          f"sharded serving check ({f_err} <= {tol})")
+                    print(f"phase 15 (b) planted fault '{fault}': worst "
+                          f"{f_err:.3e} against the limit {tol} (sound "
+                          f"{max(errs):.3e})", flush=True)
+                    del bad
+            del out, want, want_cache
+            free_device_memory()
+    return launches
+
+
+def account_job(rctx, cfg, kind, B, S):
+    """Phase 15 (c), in each rank: the dry run's cell run for real on this
+    rank of the 2×2 mesh: the bytes of its arguments, the collectives it
+    issued by kind, the step's ms and the card's peak allocation over the
+    arguments during it."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core import dchannel
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import rules
+    from repro_torch.tree import tree_leaves
+    dev = rctx.device
+    shape = ShapeCell(kind, S, B, kind)
+    with _mesh_ctx() as mc:
+        scfg = steps.serve_cfg(cfg, shape, mc)
+        specs = steps.input_specs(scfg, shape, mc)
+        fn, names = steps.step_fn_for(scfg, shape, mc)
+        params, _ = _local_params(mc, scfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+        real = {"params": params, "batch": {
+            k: torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                             device=dev, dtype=v.dtype)
+            for k, v in specs["batch"].items()}}
+        if "opt_state" in names:
+            real["opt_state"] = adamw_init(params,
+                                           getattr(torch, scfg.optimizer_dtype))
+        if "cache" in names:
+            real["cache"] = M.init_cache(scfg, B, S, device=dev)
+            real["cache_len"] = specs["cache_len"]
+        args = [real[n] for n in names]
+        tensors = tree_leaves({n: real[n] for n in names if n != "cache_len"})
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        free_device_memory()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with dchannel.tally() as t:
+            fn(*args)
+        torch.cuda.synchronize()
+        return {"bytes": nbytes, "kinds": t.kinds(),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_delta": torch.cuda.max_memory_allocated(dev) - base}
+
+
+def phase_dry_run(pool, where, label):
+    """Phase 15 (c) and (d): ``launch.dryrun._account`` on the 2×2 mesh
+    over gloo against the same cells on the 4 ranks, then the production
+    table (``run_cell(compile_=False)``, every cell of both meshes)."""
+    from repro_torch.configs import ARCHS, SHAPES, ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import param_count
+    cfg = _shard_cfg("phi3-mini-3.8b", SERVE_ARCHS["phi3-mini-3.8b"])
+    n_params = param_count(cfg)
+    for kind, (B, S) in ACCOUNT_CELLS.items():
+        t0 = time.perf_counter()
+        rec = dryrun._account(cfg, ShapeCell(kind, S, B, kind),
+                              make_test_mesh(*SHARD_MESH), ("data",), "gloo")
+        meta_s = time.perf_counter() - t0
+        out = pool.run(account_job, cfg, kind, B, S)
+        for r, o in enumerate(out):
+            check(o["bytes"] == rec["argument_size"],
+                  f"dry run {kind}: argument_size {rec['argument_size']} but "
+                  f"rank {r} holds {o['bytes']} bytes")
+            check(o["kinds"] == rec["collectives"],
+                  f"dry run {kind}: tally {rec['collectives']} but rank {r} "
+                  f"issued {o['kinds']}")
+        tokens = B * (S if kind == "train" else 1)
+        rule = (6 if kind == "train" else 2) * n_params * tokens / RANKS
+        coll = {k: (v["count"], v["bytes"]) for k, v in rec["collectives"].items()
+                if v["count"]}
+        print(f"phase 15 (c) dry run against the ranks ({where}): {cfg.name} "
+              f"{cfg.n_layers} layers, {kind} B={B} S={S}: argument_size "
+              f"{rec['argument_size']} = each rank's bytes; collectives "
+              f"(count, bytes) {json.dumps(coll)} = each rank's tally; "
+              f"flops_per_device {rec['flops_per_device']:.4e} beside "
+              f"{6 if kind == 'train' else 2}·N·tokens/{RANKS} {rule:.4e} "
+              f"(ratio {rec['flops_per_device'] / rule:.3f}); temp_size "
+              f"{rec['temp_size']} beside each rank's peak allocation over "
+              f"its arguments {json.dumps([o['peak_delta'] for o in out])} "
+              f"(ratio {rec['temp_size'] / max(1, max(o['peak_delta'] for o in out)):.3f}"
+              f"); meta run {meta_s:.2f} s, ms by rank "
+              f"{json.dumps([round(o['ms'], 1) for o in out])}; {label}",
+              flush=True)
+        del out
+        free_device_memory()
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(a, s.name, mp, compile_=False)
+            for mp in (False, True) for a in sorted(ARCHS) for s in SHAPES]
+    status = {k: sum(r["status"] == k for r in recs)
+              for k in ("LOWERED", "SKIP", "FAIL")}
+    big = max((r for r in recs if r["status"] == "LOWERED"),
+              key=lambda r: r["argument_size"])
+    check(status["FAIL"] == 0 and (status["LOWERED"], status["SKIP"]) == DRY_CELLS,
+          f"dry run production table: {status}, expected {DRY_CELLS[0]} "
+          f"LOWERED and {DRY_CELLS[1]} SKIP")
+    print(f"phase 15 (d) dry run production table (meta device, no card): "
+          f"{len(recs)} records over 16x16 and 2x16x16, {status['LOWERED']} "
+          f"LOWERED / {status['SKIP']} SKIP / {status['FAIL']} FAIL; largest "
+          f"argument_size a rank {big['argument_size']} bytes ({big['arch']} "
+          f"{big['shape']} {big['mesh']}), {sum(r['status'] == 'LOWERED' and r['argument_size'] > 80e9 for r in recs)} "
+          f"cells over 80 GB in arguments alone; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def phase_mesh_serving(pool, dev, label):
+    """Phase 15: (a) ring attention's gradient, (b) sharded serving, (c)
+    the dry run's accounting against the ranks, (d) the production table.
+    Returns the kernel launches the ranks made."""
+    t_phase = time.perf_counter()
+    where = f"world {RANKS}, transport {RANK_TRANSPORT}"
+    ring = phase_ring_gradient(pool, dev, where, label)
+    free_device_memory()
+    serving = phase_sharded_serving(
+        pool, dev, f"mesh {SHARD_MESH[0]}x{SHARD_MESH[1]} (data x model) of "
+        f"{RANKS} ranks", label)
+    phase_dry_run(pool, where, label)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"ring_fa": ring["fa"], "ring_fa_bwd": ring["fa_bwd"],
+            "serve_fa": serving["fa"], "serve_ssd": serving["ssd"]}
+
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("FAIL: run from the root of a checkout (src/repro_torch missing)")
@@ -4051,6 +4594,10 @@ def main():
             by_path["zamba2 train"] = training["zamba2"]["counts"]["fa"]
             by_path["ring attention over 4 ranks"] = ranked["fa"]
             by_path["sharded phi3 over 4 ranks"] = ranked["sharded"]["fa"]
+            by_path["ring attention gradient over 4 ranks (phase 15)"] = \
+                ranked["meshed"]["ring_fa"]
+            by_path["sharded phi3 serving over 4 ranks (phase 15)"] = \
+                ranked["meshed"]["serve_fa"]
             shapes = model_rows["fa_shapes"]
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
@@ -4059,7 +4606,9 @@ def main():
                              f"recompute), one ring attention over "
                              f"{RANKS} ranks and phase 14's sharded Phi-3 "
                              f"(bf16 loss, f32 gradients, {SHARD_TRAIN['steps']} "
-                             f"train(mesh=) steps)",
+                             f"train(mesh=) steps); phase 15: the ring "
+                             f"attention gradient's forward rings and the "
+                             f"sharded Phi-3 prefill and decode",
                 max_abs_err=max(entry["max_abs_err"], *(x["err"] for x in shapes),
                                 training["bwd_row"]["forward_with_stats_err"]),
                 forward_with_stats_max_abs_err=training["bwd_row"][
@@ -4070,12 +4619,15 @@ def main():
         else:
             by_path = {"zamba2 prefill": model_launches["ssd"],
                        "zamba2 train": training["zamba2"]["counts"]["ssd"],
-                       "sharded mamba2 over 4 ranks": ranked["sharded"]["ssd"]}
+                       "sharded mamba2 over 4 ranks": ranked["sharded"]["ssd"],
+                       "sharded mamba2 serving over 4 ranks (phase 15)":
+                           ranked["meshed"]["serve_ssd"]}
             entry.update(
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 launches_per=f"one zamba2-2.7b prefill, {TRAIN_STEPS} "
-                             f"zamba2 train steps (forward and remat recompute) "
-                             f"and phase 14's sharded Mamba2 loss and gradients")
+                             f"zamba2 train steps (forward and remat recompute), "
+                             f"phase 14's sharded Mamba2 loss and gradients "
+                             f"and phase 15's sharded Mamba2 prefills")
         kernels.append(entry)
     r = training["bwd_row"]
     kernels.append({
@@ -4084,13 +4636,16 @@ def main():
         "replaces_what": "XLA's gradient of chunked_attention: the JAX "
                          "package has no backward kernel",
         "launches": training["fa_bwd"] + training["zamba2"]["counts"]["fa_bwd"]
-        + ranked["sharded"]["fa_bwd"],
+        + ranked["sharded"]["fa_bwd"] + ranked["meshed"]["ring_fa_bwd"],
         "launches_by_path": {"phi3 train": training["fa_bwd"],
                              "zamba2 train": training["zamba2"]["counts"]["fa_bwd"],
-                             "sharded phi3 over 4 ranks": ranked["sharded"]["fa_bwd"]},
+                             "sharded phi3 over 4 ranks": ranked["sharded"]["fa_bwd"],
+                             "ring attention backward over 4 ranks (phase 15)":
+                                 ranked["meshed"]["ring_fa_bwd"]},
         "launches_per": f"{TRAIN_STEPS} phi3 and {TRAIN_STEPS} zamba2 train "
                         f"steps, phase 14's sharded Phi-3 gradients and "
-                        f"train(mesh=) steps",
+                        f"train(mesh=) steps, and phase 15's ring attention "
+                        f"backward rings ({RING_GRAD_HOPS} a ring)",
         "kernels_per_launch": FA_BWD_KERNELS,
         "kernels": "bf16: fa_bwd_delta_kernel, fa_bwd_dkdv_wgmma_kernel, "
                    "fa_bwd_dq_wgmma_kernel (wgmma + TMA, the forward's "

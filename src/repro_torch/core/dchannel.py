@@ -31,18 +31,25 @@ reference's ``lax.psum``, and ``_pipeline`` the tensor body of
 (``lax.psum``/``pmax`` with no gradient) and :func:`all_gather`
 (``lax.all_gather(tiled=True)``) are the plain collectives the sharded
 model and the optimizer build on.
+
+:func:`tally` counts the collectives a block of code issues, by the
+reference's five kinds (:data:`COLLECTIVES`), whichever module issued
+them: a dispatch mode over torch's ``c10d`` operators.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .ranks import Group
 
-__all__ = ["ring_send", "chain_send", "reverse_chain_send", "RingChannel",
-           "double_buffered_ring", "psum", "all_reduce", "all_gather"]
+__all__ = ["ring_send", "ring_post", "chain_send", "reverse_chain_send",
+           "RingChannel", "double_buffered_ring", "psum", "all_reduce",
+           "all_gather", "COLLECTIVES", "Tally", "tally"]
 
 PyTree = Any
 
@@ -83,7 +90,14 @@ class _Hop:
                for i, w in enumerate(self.wire)]
         ops += [dist.P2POp(dist.irecv, r, group.ranks[src], group.pg, tag=i)
                 for i, r in enumerate(self.recv)]
-        self.reqs = dist.batch_isend_irecv(ops) if ops else []
+        if leaves and leaves[0].device.type == "meta":
+            # a simulated rank (``ranks.simulated``): its process group
+            # has no coalescing backend for meta tensors, so the ops go
+            # one by one
+            self.reqs = [op.op(op.tensor, op.peer, op.group, op.tag)
+                         for op in ops]
+        else:
+            self.reqs = dist.batch_isend_irecv(ops) if ops else []
 
     def wait(self) -> List[torch.Tensor]:
         """The received leaves on their devices; zeros where no edge
@@ -117,6 +131,19 @@ def _permute(leaves: List[torch.Tensor], group: Group, displacement: int,
         return list(leaves)           # every edge is a self-edge
     dst, src = _edges(group, displacement, wrap)
     return _Hop(leaves, group, dst, src).wait()
+
+
+def ring_post(x: PyTree, group: Group,
+              displacement: int = 1) -> Callable[[], PyTree]:
+    """Post :func:`ring_send` of ``x`` without waiting for it: returns the
+    function that waits and gives the tree that arrived.  The step of
+    :func:`double_buffered_ring`, for a loop that carries more than the
+    circulating block (ring attention's backward sends its gradient
+    accumulators after each hop's body).  No gradient."""
+    if displacement % group.size == 0:
+        return lambda: x              # every edge is a self-edge
+    hop = _post(x, group, displacement, True)
+    return lambda: _rebuild(x, iter(hop.wait()))
 
 
 class _SendFn(torch.autograd.Function):
@@ -314,3 +341,87 @@ def _pipeline(stage_fn: Callable, stage_params: Any,
     # emitted[t] holds microbatch t - (S - 1); realign to microbatch order
     out = torch.stack(emitted[n - 1:n - 1 + m])
     return psum(out, group) if collect == "psum" else out
+
+
+# ---------------------------------------------------------------------------
+# the collective tally
+# ---------------------------------------------------------------------------
+#: the reference's kinds of collective (``launch/dryrun.py``'s, from HLO)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+#: torch's c10d operators by the kind the reference's HLO names them.  A
+#: point-to-point hop counts once, at its receiver (``recv_``): the
+#: reference's ``collective-permute`` is one op whose result is the block
+#: that arrives.  The port's operations map so: ``all_reduce``, ``psum``
+#: and ``psum_compat`` → all-reduce; ``all_gather`` and ``fsdp_gather``'s
+#: forward → all-gather; ``fsdp_gather``'s backward → all-reduce (a sum
+#: over the data group, then the rank's slice: the reference's
+#: transpose is a reduce-scatter); the MoE ``a2a`` dispatch → all-to-all;
+#: ``ring_send``/``chain_send`` hops and the MoE ``ring`` dispatch →
+#: collective-permute.
+_C10D_KINDS = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "recv_": "collective-permute", "recv_any_source_": "collective-permute",
+}
+
+
+def _nbytes(x: Any) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(v) for v in x)
+    return 0
+
+
+class Tally:
+    """The collectives of a block, in issue order: ``records`` holds one
+    (c10d operator, bytes of its result) pair per op.  :meth:`kinds` sums
+    them by the reference's kind, as its dry run sums its collectives'
+    result shapes."""
+
+    def __init__(self):
+        self.records: List[Tuple[str, int]] = []
+
+    def kinds(self) -> Dict[str, Dict[str, int]]:
+        """``{kind: {"count", "bytes"}}`` for each of :data:`COLLECTIVES`."""
+        out = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
+        for name, nbytes in self.records:
+            kind = _C10D_KINDS.get(name)
+            if kind is not None:
+                out[kind]["count"] += 1
+                out[kind]["bytes"] += nbytes
+        return out
+
+
+class _TallyMode(TorchDispatchMode):
+    """Appends each c10d collective that passes through dispatch to a
+    :class:`Tally`."""
+
+    def __init__(self, t: Tally):
+        super().__init__()
+        self.t = t
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace == "c10d":
+            name = func._schema.name.split("::")[-1]
+            if name in _C10D_KINDS:
+                self.t.records.append((name, _nbytes(args[0])))
+        return out
+
+
+@contextmanager
+def tally():
+    """Record every collective issued inside the block (in this thread and
+    in the autograd threads it starts) into a :class:`Tally`, over any
+    backend (NCCL, gloo, the dry run's fake group)."""
+    t = Tally()
+    with _TallyMode(t):
+        yield t

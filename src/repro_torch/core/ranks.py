@@ -27,6 +27,12 @@ moves every tensor of an exchange to the host and back after it
 ranks than cards without ``transport=`` raises :class:`LoweringError`
 naming ``transport="gloo"``: nothing switches the transport silently.
 
+:func:`simulated` makes the calling process play one rank of a pool that
+does not exist, for the dry run (``repro_torch.launch.dryrun``): torch's
+in-process ``"fake"`` process group stands behind every group, so a
+collective on ``meta`` tensors completes and sends nothing, and
+:func:`current` gives a :class:`RankContext` over it.
+
 Jobs and results cross the pipe as ordinary pickles (tensors inline, by
 value), so no shared-memory segment outlives a call.  :func:`pool` keeps
 one pool per layout for the process, which the mesh programs share;
@@ -44,6 +50,7 @@ import sys
 import tempfile
 import time
 import traceback
+from contextlib import contextmanager
 from multiprocessing.connection import wait as _wait
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -53,7 +60,7 @@ import torch.distributed as dist
 from .skeleton import LoweringError
 
 __all__ = ["TRANSPORTS", "RankPool", "RankContext", "Group", "card_count",
-           "plan_ranks", "pool", "shutdown", "current"]
+           "plan_ranks", "pool", "shutdown", "current", "simulated"]
 
 TRANSPORTS = ("nccl", "gloo")
 #: the kernel launch counters a rank reports after each job: name ->
@@ -211,6 +218,40 @@ def current() -> Optional[RankContext]:
     """The :class:`RankContext` of this process when it is a rank (a job
     runs in it), else None."""
     return _CURRENT
+
+
+@contextmanager
+def simulated(world: int, rank: int = 0, *, device: Any = "meta",
+              transport: str = "nccl"):
+    """This process as rank ``rank`` of ``world``, with nothing sent: the
+    dry run's rank.  Starts torch's ``"fake"`` process group in-process
+    (every collective over it completes at once and moves no data, which
+    suits ``meta`` tensors), makes :func:`current` the
+    :class:`RankContext` over it — so ``parallel.context.mesh_context``
+    builds its groups through :meth:`RankContext.grid` unchanged — and on
+    exit destroys the group and restores the previous context.
+    ``transport`` is the one whose rules the exchanges follow
+    (``"gloo"``: 16-bit sums go as float32, ``parallel.context``), so the
+    accounting of a run on NCCL and of the card's gloo ranks differ as the
+    runs do.  ``device`` is the rank's device (``"meta"``)."""
+    if transport not in TRANSPORTS:
+        raise LoweringError(f"unknown transport {transport!r} "
+                            f"(have {TRANSPORTS})")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running here: a "
+                           "simulated rank needs a process of its own")
+    # an internal module of torch's own tests, imported only here
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    global _CURRENT
+    prev = _CURRENT
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        _CURRENT = RankContext(rank, world, torch.device(device), transport)
+        yield _CURRENT
+    finally:
+        _CURRENT = prev
+        dist.destroy_process_group()
 
 
 def _launch_counts() -> Dict[str, int]:

@@ -350,6 +350,10 @@ def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype != torch.bfloat16 and stats is not None:
         raise ValueError(f"the {q.dtype} backward kernels recompute the "
                          f"softmax statistics: stats= is for bfloat16 only")
+    if q.device.type == "meta":
+        # the dry run's device has no kernel: the plain version, by name
+        return fa_backward_plain(q, k, v, o, do, causal=causal, window=window,
+                                 q_offset=q_offset, stats=stats)
     if q.device.type != "cuda":
         raise ValueError(f"the flash-attention backward kernel runs on CUDA, "
                          f"not {q.device}; use fa_backward_plain")
@@ -382,6 +386,7 @@ def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
+        _bind_context(q.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fa_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -395,6 +400,15 @@ def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({lib.fa_bwd_error_string(err).decode()})")
     _count_launch(backward=True)
     return dq, dk, dv
+
+
+def _bind_context(device: torch.device) -> None:
+    """Make the card's context current in the calling thread.  The launches
+    encode TMA tensor maps through the driver API, which needs a current
+    context, and the runtime binds one to a thread only at that thread's
+    first call that needs it: autograd runs a backward on a device thread
+    of its own, whose first CUDA call can be this launch."""
+    torch.cuda.current_stream(device).query()
 
 
 def _like(t: torch.Tensor) -> torch.Tensor:
@@ -419,7 +433,7 @@ def _check(q, k, v) -> None:
         raise ValueError("S and T must be at least 1")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must share a device")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
@@ -514,7 +528,16 @@ def _what(err: int) -> str:
 def _fa_launch(q, k, v, causal, window, q_offset, stats=None) -> torch.Tensor:
     """One forward launch on inputs that ``_check`` passed, on CUDA; with
     ``stats`` (bfloat16 only, (2, B·H·S) float32) the kernel also writes
-    each row's m and 1/l there."""
+    each row's m and 1/l there.  On the ``meta`` device (the dry run,
+    ``launch/dryrun.py``), which has no kernel, the plain versions run,
+    and nothing is counted."""
+    if q.device.type == "meta":
+        # the dry run's device has no kernel: the plain versions, by name
+        if stats is not None:
+            stats.copy_(fa_stats_plain(q, k, causal=causal, window=window,
+                                       q_offset=q_offset))
+        return fa_plain(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
@@ -524,6 +547,7 @@ def _fa_launch(q, k, v, causal, window, q_offset, stats=None) -> torch.Tensor:
     strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, out))
     lib = _lib()
     with torch.cuda.device(q.device):
+        _bind_context(q.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(),

@@ -157,10 +157,10 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
     if any(t.device != profile.device for t in tensors):
         raise ValueError("profile, subjects and lengths must share a device")
 
-    if profile.device.type == "cpu":
+    if profile.device.type in ("cpu", "meta"):   # no kernel there
         subj = subjects
         if lengths is not None:
-            live = torch.arange(Dp) < lengths[:, None]
+            live = torch.arange(Dp, device=subjects.device) < lengths[:, None]
             subj = torch.where(live, subjects, A)
         return sw_plain(profile, subj, gap_open, gap_extend, q_len).reshape(B)
     if profile.device.type != "cuda":

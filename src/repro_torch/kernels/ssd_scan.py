@@ -267,8 +267,9 @@ def _check(x, dt, A, B, C, h0, chunk, compute_dtype) -> int:
 
 
 def _check_kernel(x, dt, A, B, C, h0, l) -> None:
-    """Raise on CUDA inputs that the kernels do not take."""
-    if x.device.type != "cuda":
+    """Raise on CUDA inputs (or the dry run's meta ones) that the kernels
+    do not take."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD kernel for {x.device}")
     if x.dtype not in _DTYPES or not (x.dtype == B.dtype == C.dtype):
         raise TypeError(f"x, B, C must share float32 or bfloat16, got "
@@ -326,12 +327,18 @@ def _ssd_launch(x, dt, A, B, C, h0, l, compute_dtype):
     N = B.shape[-1]
     nc = T // l
     f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((b, T, H, P), **f32)
-    hout = torch.empty((b, H, P, N), **f32)
     cs = torch.empty((b, H, nc, l), dtype=torch.float64,
                      device=x.device)               # pass 1: cumsum(dt·A)
     cbt = torch.empty((b, nc, l, l), **f32)         # pass 2: (C·Bᵀ)ᵀ per chunk
     st = torch.empty((b, nc, H, N, P), **f32)       # passes 3-4: chunk states
+    if x.device.type == "meta":
+        # the dry run's device has no kernel: the plain version by name,
+        # beside the scratch the kernels would leave; nothing is counted
+        y, hout = ssd_plain(x, dt, A, B, C, l, h0=h0,
+                            compute_dtype=compute_dtype)
+        return y, hout, (cs, cbt, st)
+    y = torch.empty((b, T, H, P), **f32)
+    hout = torch.empty((b, H, P, N), **f32)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -418,6 +425,10 @@ def ssd_backward(x, dt, A, B, C, chunk: int, dy, scratch, *,
     in f32; :func:`ssd_backward_plain` is the same function in eager
     PyTorch."""
     l = _check(x, dt, A, B, C, h0, chunk, compute_dtype)
+    if x.device.type == "meta":
+        # the dry run's device has no kernel: the plain version, by name
+        return ssd_backward_plain(x, dt, A, B, C, l, dy, dh_final=dh_final,
+                                  h0=h0, compute_dtype=compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"the SSD backward kernel runs on CUDA, not "
                          f"{x.device}; use ssd_backward_plain")
@@ -475,7 +486,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Their scratch (cs in float64, CBᵀ and the chunk states (b,T/l,H,N,P)
     in f32) comes from ``torch.empty`` here.  With grad mode on and an
     input that requires grad, a CUDA call runs through :class:`SsdScanFn`,
-    whose backward is the kernels of ``csrc/ssd_scan_bwd.cu``.
+    whose backward is the kernels of ``csrc/ssd_scan_bwd.cu``.  On the
+    ``meta`` device (the dry run, ``launch/dryrun.py``) the same path runs
+    with the plain versions in the launches' place, so it saves and frees
+    what the card's does.
     """
     l = _check(x, dt, A, B, C, h0, chunk, compute_dtype)
     if x.device.type == "cpu":

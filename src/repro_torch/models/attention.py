@@ -5,6 +5,9 @@ Counterpart of ``repro.models.attention``.  Execution paths:
     runs the hand-written flash-attention kernel
     (``repro_torch.kernels.flash_attention``) for every shape, the small
     ones the reference sends to ``naive`` included;
+  * on ``meta`` tensors (the dry run) it takes the same wrapper, whose
+    launch points run the plain versions there (the device has no
+    kernel), so the dry run saves and frees what the card's path does;
   * on CPU tensors it takes the reference's own dispatch: ``naive`` for
     tiny shapes, else ``chunked`` — flash-style double tiling over query
     and key/value chunks with an online-softmax carry, never materialising
@@ -121,7 +124,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               impl: str = "chunked", q_chunk: int = 1024, kv_chunk: int = 512,
               causal_skip: bool = False, q_offset: int = 0) -> torch.Tensor:
-    if q.is_cuda and impl in _KERNEL_IMPLS:
+    if q.device.type in ("cuda", "meta") and impl in _KERNEL_IMPLS:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window,
                               q_offset=q_offset)

@@ -7,15 +7,25 @@ distributions are the reference's, the bits are not.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "swiglu", "dense_init",
-           "embed_init", "init_device", "Params"]
+           "embed_init", "init_device", "Params", "scan_unroll"]
 
 Params = Dict[str, torch.Tensor]
+
+
+def scan_unroll() -> bool:
+    """True when the dry run asks for unrolled layer loops
+    (``REPRO_UNROLL=1``, ``launch/dryrun.py --unroll``), as in the
+    reference, where XLA's cost analysis counts a ``lax.scan`` body once.
+    The port's layer loops are Python loops, so every count its dry run
+    takes is already a full count: no model code consults the flag."""
+    return os.environ.get("REPRO_UNROLL", "0") == "1"
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

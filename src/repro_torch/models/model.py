@@ -43,8 +43,26 @@ token sum over the global token count, summed over the data group; the
 MoE router loss is the mean of the data shards' (the reference declares
 its per-shard value replicated).  A batch that does not divide over the
 data group is replicated and weighted 1/dp, so nothing counts twice.
-``prefill`` and ``decode_step`` under such a context raise: the reference
-shards caches only for its dry run (ROADMAP §1 item 12).
+``prefill`` and ``decode_step`` run under such a context too, on the
+rank's rows and heads: the weights gathered over the data group as in
+``loss_fn`` (none to gather with ``cfg.serve_params_replicated``), the MoE
+through its mesh path at the step's token count, and the logits'
+vocab shards all-gathered over the model group, so every rank returns the
+full (B_loc, V) f32 logits of its data rows (the reference's "gathered
+replicated").  The caches are local (``init_cache`` under the context
+allocates this rank's): the batch dim is split over the data group where
+``B % dp == 0`` (``cache_pspecs``' ``"dp"``), the SSM ``h``/``conv``
+replicate over the model group as the Mamba2 parameters do, and a k/v
+cache holds the kv heads this rank's q heads use (``_local_heads``), the
+positions whole.  The reference's token ``"mp"`` sits on the k/v cache's
+position dim, which GSPMD splits over the model axis; the port splits the
+kv heads instead, so that each rank attends with what it holds.  Where
+kv heads outnumber the model group evenly the bytes a rank holds are the
+same; where a GQA model has fewer kv heads than model ranks (8 kv heads
+at mp 16 in Mixtral, Mistral-Nemo, DeepSeek-Coder, Kimi-K2 and
+Llama-Vision; 4 in StarCoder2) a rank holds ``max(1, kv / mp)`` = 1 kv
+head, which ``mp / kv`` ranks hold alike (``parallel.rules.gather_cache``
+keeps one copy).
 """
 from __future__ import annotations
 
@@ -55,6 +73,7 @@ import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from ..core import dchannel
 from ..kernels.ops import resolve_device
 from ..tree import tree_map
 from .attention import attention, decode_attention
@@ -68,7 +87,7 @@ from .ssm import init_ssm_cache, ssm_apply, ssm_decode, ssm_init
 
 __all__ = ["init_params", "init_params_spec", "forward_hidden", "loss_fn",
            "prefill", "decode_step", "init_cache", "segment_counts",
-           "params_pspecs", "cache_pspecs", "batch_pspecs",
+           "params_pspecs", "cache_pspecs", "batch_pspecs", "local_kv_heads",
            "SUPPORTED_FAMILIES"]
 
 Params = Dict[str, Any]
@@ -324,13 +343,6 @@ def batch_pspecs(cfg: ModelConfig, batch: int, dp_size: int) -> Dict[str, Any]:
     return out
 
 
-def _refuse_sharded(what: str) -> None:
-    if sharded_ctx() is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh of more than one rank: the reference "
-            f"shards caches only for its dry run (ROADMAP §1 item 12)")
-
-
 # ==========================================================================
 # blocks
 # ==========================================================================
@@ -396,8 +408,15 @@ def _vocab_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 
 def _logits_full(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, V) in f32."""
+    """Logits (B, V) in f32.  Under a sharded context ``head`` is this
+    rank's vocab rows: its ``"dp"`` dim is gathered, and the rows' logits
+    are all-gathered over the model group, so every rank holds them all."""
+    ctx = sharded_ctx()
+    if ctx is not None:
+        head = fsdp_gather(head, (MP, _fsdp_tok(cfg)))
     logits = x.float() @ head.float().T
+    if ctx is not None:
+        logits = dchannel.all_gather(logits.contiguous(), ctx.model, dim=-1)
     return logits[:, :cfg.vocab_size]
 
 
@@ -420,6 +439,15 @@ def _local_heads(cfg: ModelConfig, n: int, m: int) -> Tuple[slice, slice]:
         raise ValueError(f"{cfg.name}: {hp} q heads and {kv} kv heads do not "
                          f"split over {n} model ranks")
     return slice(j0, j0 + hl), slice(k0, k1)
+
+
+def local_kv_heads(cfg: ModelConfig, mp_size: int = 1, mp_rank: int = 0) -> int:
+    """The kv heads a model rank holds (in its k/v cache, and of ``wk``/
+    ``wv``): those its q heads use, ``max(1, kv / mp)``."""
+    if mp_size == 1:
+        return _kv_heads_alloc(cfg)
+    ks = _local_heads(cfg, mp_size, mp_rank)[1]
+    return ks.stop - ks.start
 
 
 def _attn_core(p, x, cfg: ModelConfig, *, positions, mode: str,
@@ -745,8 +773,9 @@ def prefill(params: Params, batch, cfg: ModelConfig):
 
     batch: {"tokens": (B,S) int} ({"frames": (B,S,d)} for audio; vlm adds
     {"vision_embeds": (B,P,vision_dim)}).  Returns (logits (B,V) f32, or
-    (B,n_codebooks,V) for audio, cache)."""
-    _refuse_sharded("prefill")
+    (B,n_codebooks,V) for audio, cache).  Under a sharded context: this
+    rank's rows and shards, the full logits of its rows, its local cache
+    (see the module's docstring)."""
     x, vision = _embed_batch(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -765,8 +794,9 @@ def decode_step(params: Params, batch, cache, cache_len: int, cfg: ModelConfig):
     batch: {"tokens": (B,1)} ({"frames": (B,1,d)} for audio; vlm adds
     {"vision_embeds"}) and optionally {"start_pos": (B,)};
     cache_len: int — valid length before this step.
-    Returns (logits as ``prefill``'s, new_cache)."""
-    _refuse_sharded("decode_step")
+    Returns (logits as ``prefill``'s, new_cache).  Under a sharded
+    context ``cache`` is this rank's, as ``prefill`` and ``init_cache``
+    make it."""
     x, vision = _embed_batch(params, batch, cfg)
     cache_len = int(cache_len)
     positions = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,
@@ -784,10 +814,18 @@ def decode_step(params: Params, batch, cache, cache_len: int, cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = None) -> Dict[str, Any]:
     """Allocate an (empty) decode cache matching forward_hidden's layout,
-    on ``device`` (``None``: the card)."""
+    on ``device`` (``None``: the card; ``"meta"`` allocates nothing).
+    Under a sharded context, this rank's local cache: ``batch`` rows
+    split over the data group where they divide, and the rank's kv
+    heads."""
     _check_family(cfg)
     dev = resolve_device(device)
     kv = _kv_heads_alloc(cfg)
+    ctx = sharded_ctx()
+    if ctx is not None:
+        kv = local_kv_heads(cfg, ctx.mp_size, ctx.model.rank)
+        if batch % ctx.dp_size == 0:
+            batch //= ctx.dp_size
     T = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     dt = cfg.param_dtype
     segs = segment_counts(cfg)

@@ -113,6 +113,12 @@ def _moe_grouped(tokens, params, gates, ids, cfg: ModelConfig) -> torch.Tensor:
     src = order // k                               # each copy's token
     rows = tokens[src]
     # One host read per layer: the expert loop needs each group's length.
+    if tokens.device.type == "meta":
+        raise NotImplementedError(
+            "the dropless one-device MoE dispatch reads each expert's token "
+            "count on the host, which the meta device of the dry run "
+            "(launch/dryrun.py) cannot give; under a mesh the MoE takes its "
+            "capacity path")
     counts = torch.bincount(flat_ids, minlength=cfg.n_experts).tolist()
     out_rows = torch.empty_like(rows)
     start = 0
@@ -150,8 +156,12 @@ def _dispatch_local(tokens, eid_flat, gate_flat, e_loc: int, capacity: int):
     valid = (eid_flat >= 0) & (eid_flat < e_loc) & (pos < capacity)
     src = torch.arange(tokens.shape[0], device=dev).repeat_interleave(
         L // tokens.shape[0])
-    buf = tokens.new_zeros((e_loc, capacity, d)).index_put(
-        (eid_flat[valid], pos[valid]), tokens[src[valid]])
+    # every copy is written, a dropped one into a spare slot past the
+    # capacity that is cut off after: no index depends on the data's
+    # count of valid copies (the meta device of the dry run has none)
+    buf = tokens.new_zeros((e_loc, capacity + 1, d)).index_put(
+        (torch.where(valid, eid_flat, 0), torch.where(valid, pos, capacity)),
+        tokens[src])[:, :capacity]
 
     def combine(out_buf):
         got = out_buf[eid_flat.clamp(0, e_loc - 1), pos.clamp(0, capacity - 1)]

@@ -26,11 +26,25 @@ it returns the local output shard.
   or is 0): it gets zero weight in the merge.  On CPU tensors it runs
   :func:`ring_attention_plain`.
 * :func:`ring_attention_plain` is the reference's hop — the model's
-  ``_chunk_body`` over every block, masked — in eager PyTorch.
+  ``_chunk_body`` over every block, masked — in eager PyTorch.  It is the
+  forward's oracle and carries no gradient (it raises when asked for one).
 
-No gradient yet: with grad mode on and any of q, k, v requiring one,
-both paths raise ``NotImplementedError`` (ROADMAP §1 item 11 step 6)
-rather than return a detached result.
+The gradient: with grad mode on and any of q, k, v requiring one,
+:func:`ring_attention` runs :class:`RingAttentionFn` on either device.
+Its forward is the flash-attention ring above, which also keeps each
+row's *merged* statistics — the global row max m (base 2) and 1/l, in the
+``(2, B·H·S_loc)`` float32 layout of
+:func:`~repro_torch.kernels.flash_attention.fa_backward`.  Its backward
+is a second ring (:func:`_ring_fa_backward`): the (k, v) blocks circulate
+again, each travelling with its float32 (dk, dv) accumulators, and every
+hop runs one flash-attention backward of this rank's q, output and
+output gradient against the visiting block, with the merged statistics:
+P = 2^(s - m)/l is then the ring's probability, and the kernel's
+Δ = rowsum(do ∘ o) the global one.  dq accumulates where it is.  After
+the last hop one more send brings every block's dk, dv home to its owner.
+On CUDA tensors the hops run the bfloat16 backward kernel; on CPU tensors
+its plain version (:func:`~repro_torch.kernels.flash_attention.fa_backward_plain`),
+in any dtype.
 """
 from __future__ import annotations
 
@@ -38,21 +52,25 @@ from typing import Optional
 
 import torch
 
-from ..core.dchannel import double_buffered_ring
+from ..core.dchannel import double_buffered_ring, ring_post, ring_send
 from ..core.ranks import Group
 from ..kernels import flash_attention as fa
 from ..models.attention import _NEG, _chunk_body, _repeat_kv
 
-__all__ = ["ring_attention", "ring_attention_plain"]
+__all__ = ["ring_attention", "ring_attention_plain", "RingAttentionFn"]
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _refuse_grad(*ts: torch.Tensor) -> None:
-    """Raise if autograd would need the ring's gradient: the ring runs
-    under ``no_grad`` and its result would come back detached."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    """Raise if autograd would need the gradient of a ring that runs under
+    ``no_grad``: its result would come back detached."""
+    if _wants_grad(*ts):
         raise NotImplementedError(
-            "ring_attention carries no gradient yet (ROADMAP §1 item 11 "
-            "step 6); run it under torch.no_grad() or detach q, k and v")
+            "this ring carries no gradient: call ring_attention, whose "
+            "RingAttentionFn differentiates the flash-attention ring")
 
 
 def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,12 +120,11 @@ def _fa_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.float(), torch.where(seen, m, fa.NEG2), l
 
 
-def _ring_fa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-             group: Group, causal: bool, window: Optional[int]
-             ) -> torch.Tensor:
-    """:func:`ring_attention` through the flash-attention wrapper: the
-    kernel on CUDA tensors (its plain version on CPU ones)."""
-    _refuse_grad(q, k, v)
+def _ring_merge(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                group: Group, causal: bool, window: Optional[int]):
+    """The flash-attention ring: (the local output (B, S_loc, H, Dh) in
+    q's dtype, the merged statistics (2, B·H·S_loc) float32: each row's
+    global m, base 2, and 1/l, 0 where no key of any hop is visible)."""
     B, s_loc, H, Dh = q.shape
     n, me = group.size, group.rank
     dev = q.device
@@ -129,10 +146,99 @@ def _ring_fa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 acc * a[..., None] + o * b[..., None]), None
 
     with torch.no_grad():
-        _, l, acc = double_buffered_ring(hop, (k, v), carry0, group)
-        out = torch.where(l[..., None] > 0,
+        m, l, acc = double_buffered_ring(hop, (k, v), carry0, group)
+        seen = l > 0
+        out = torch.where(seen[..., None],
                           acc / torch.clamp(l[..., None], min=1e-30), 0.0)
-    return out.transpose(1, 2).to(q.dtype)
+        stats = torch.stack([torch.where(seen, m, fa.NEG2),
+                             torch.where(seen, 1.0 / torch.where(seen, l, 1.0),
+                                         0.0)])
+    return out.transpose(1, 2).to(q.dtype), stats.reshape(2, -1)
+
+
+def _ring_fa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             group: Group, causal: bool, window: Optional[int]
+             ) -> torch.Tensor:
+    """:func:`ring_attention` through the flash-attention wrapper: the
+    kernel on CUDA tensors (its plain version on CPU ones), no gradient."""
+    _refuse_grad(q, k, v)
+    return _ring_merge(q, k, v, group=group, causal=causal, window=window)[0]
+
+
+def _bwd_hop(q, k, v, o, do, stats, *, causal, window, q_offset):
+    """One hop's (dq, dk, dv) in the (B, H, S, D) layouts of its inputs:
+    the backward kernel on CUDA tensors, its plain version elsewhere."""
+    if q.device.type == "cuda":
+        return fa.fa_backward(q, k, v, o, do, causal=causal, window=window,
+                              q_offset=q_offset, stats=stats)
+    return fa.fa_backward_plain(q, k, v, o, do, causal=causal, window=window,
+                                q_offset=q_offset, stats=stats)
+
+
+def _ring_fa_backward(q, k, v, out, do, stats, *, group: Group,
+                      causal: bool, window: Optional[int]):
+    """(dq, dk, dv) of the ring for the output gradient ``do``, each the
+    local shard in its input's dtype.
+
+    A second ring of ``group.size`` hops.  At hop h this rank holds the
+    (k, v) block that left rank ``src = me - h`` and that block's float32
+    (dk, dv) accumulators: the next hop's (k, v) send is posted first, then
+    one backward of this rank's q, ``out`` and ``do`` against the block
+    (``q_offset = (me - src)·S_loc``, the merged ``stats``) adds its dq here
+    and its dk, dv to the accumulators, which are sent on after it.  Under
+    ``causal`` a hop with ``src > me`` launches nothing, but its block and
+    accumulators still move.  After the last hop one more send — the
+    accumulators' n-th — brings every block's dk, dv home to the rank that
+    owns the block."""
+    B, s_loc, H, Dh = q.shape
+    n, me = group.size, group.rank
+    f32 = torch.float32
+    qt, ot, dot = (t.transpose(1, 2) for t in (q, out, do))   # (B, H, S, D)
+    dq = torch.zeros((B, H, s_loc, Dh), dtype=f32, device=q.device)
+    block = (k, v)
+    acc = (torch.zeros(k.shape, dtype=f32, device=k.device),
+           torch.zeros(v.shape, dtype=f32, device=v.device))
+    for h in range(n):
+        src = (me - h) % n
+        arrive = ring_post(block, group) if h + 1 < n else None
+        if not (causal and src > me):
+            kt, vt = (t.transpose(1, 2) for t in block)
+            off = (me - src) * s_loc
+            st = stats      # the global m and 1/l: P is the ring's probability
+            oh = ot         # the ring's output: Δ = rowsum(do ∘ o) is global
+            dq_h, dk_h, dv_h = _bwd_hop(qt, kt, vt, oh, dot, st, causal=causal,
+                                        window=window, q_offset=off)
+            dq += dq_h.float()
+            acc = (acc[0] + dk_h.transpose(1, 2).float(),
+                   acc[1] + dv_h.transpose(1, 2).float())
+        if arrive is not None:
+            acc = ring_send(acc, group)
+            block = arrive()
+    dk, dv = ring_send(acc, group)      # home: the accumulators' n-th send
+    return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class RingAttentionFn(torch.autograd.Function):
+    """The flash-attention ring with its gradient.  The forward saves q,
+    the local k and v, the ring's output in q's dtype and the merged
+    statistics (m base 2, 1/l: ``(2, B·H·S_loc)`` float32); the backward
+    is :func:`_ring_fa_backward`'s second ring."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, window):
+        out, stats = _ring_merge(q, k, v, group=group, causal=causal,
+                                 window=window)
+        ctx.save_for_backward(q, k, v, out, stats)
+        ctx.group, ctx.causal, ctx.window = group, causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, stats = ctx.saved_tensors
+        dq, dk, dv = _ring_fa_backward(
+            q, k, v, out, do.contiguous(), stats, group=ctx.group,
+            causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -142,7 +248,12 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``group``.  Returns the local (B, S_loc, H, Dh) shard in q's dtype.
     On CUDA tensors each hop is one launch of the bfloat16 flash-attention
     kernel (float32 raises: only the bfloat16 kernel writes the
-    statistics); on CPU tensors :func:`ring_attention_plain`."""
+    statistics); on CPU tensors :func:`ring_attention_plain`.  With grad
+    mode on and an input that requires grad, :class:`RingAttentionFn` on
+    either device (its hops through the wrapper's plain versions on CPU
+    tensors)."""
+    if _wants_grad(q, k, v):
+        return RingAttentionFn.apply(q, k, v, group, causal, window)
     if q.device.type == "cpu":
         return ring_attention_plain(q, k, v, group=group, causal=causal,
                                     window=window)

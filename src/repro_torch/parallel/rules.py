@@ -11,6 +11,10 @@ tensor of the local slices (:meth:`Sharding.gather`, a collective).
 :func:`shard_tree` and :func:`gather_tree` apply a plan to a tree: with
 ``convert.params_from_numpy`` they carry the reference's parameters onto
 the ranks and the local gradients back.
+
+A decode cache is laid out by the model, not by its token tree
+(``models.model``'s docstring): :func:`gather_cache` puts the ranks' local
+caches together.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from ..tree import tree_map
 from .context import MeshCtx
 
 __all__ = ["Sharding", "to_shardings", "param_shardings", "cache_shardings",
-           "batch_shardings", "shard_tree", "gather_tree"]
+           "batch_shardings", "shard_tree", "gather_tree", "gather_cache"]
 
 
 @dataclass(frozen=True)
@@ -87,3 +91,39 @@ def gather_tree(local: Any, plan: Any) -> Any:
     """The full tree of every rank's ``local`` (a collective: every rank of
     the mesh calls it, in the same order)."""
     return tree_map(lambda t, s: s.gather(t), local, plan)
+
+
+#: dims of one layer's cache leaf, after its leading stack dims: k/v
+#: (B, T, kv, hd), h (B, H, P, N), conv (B, K, C)
+_CACHE_DIMS = {"k": 4, "v": 4, "h": 4, "conv": 3}
+
+
+def _cache_axes(key: str, t: torch.Tensor):
+    """(batch dim, kv-head dim or None) of a cache leaf."""
+    lead = t.dim() - _CACHE_DIMS[key]
+    return lead, (lead + 2 if key in ("k", "v") else None)
+
+
+def gather_cache(cfg, cache: Any, ctx: MeshCtx, batch: int) -> Any:
+    """The full cache of every rank's local ``cache`` (a collective): rows
+    gathered over the data group, kv heads over the model group, one copy
+    of a kv head that several model ranks hold."""
+    from ..models import model as _model
+    out = {}
+    with torch.no_grad():
+        for key, t in cache.items():
+            bd, kd = _cache_axes(key, t)
+            if batch % ctx.dp_size == 0 and ctx.dp_size > 1:
+                t = dchannel.all_gather(t.contiguous(), ctx.data, bd)
+            if kd is not None and ctx.mp_size > 1:
+                n_loc = t.shape[kd]
+                parts = dchannel.all_gather(t.contiguous(), ctx.model, kd)
+                keep, seen = [], set()
+                for m in range(ctx.mp_size):
+                    first = _model._local_heads(cfg, ctx.mp_size, m)[1].start
+                    if first not in seen:
+                        seen.add(first)
+                        keep.extend(range(m * n_loc, (m + 1) * n_loc))
+                t = parts.index_select(kd, torch.tensor(keep, device=t.device))
+            out[key] = t
+    return out

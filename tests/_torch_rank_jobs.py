@@ -262,20 +262,51 @@ def region_job(ctx, x, mesh_shape):
         return out.detach(), x.grad
 
 
-def refused_entry_points(ctx, cfg, params, batch, mesh_shape):
-    """``prefill``/``decode_step`` under a mesh of more than one rank: the
-    text of what each raised."""
+def pad_kv(cfg, cache, n):
+    """A prefill's cache with ``n`` empty positions after its last in each
+    k/v leaf, for decode steps past it (the reference allocates its decode
+    caches at max_len); a windowed model's rolling cache as it is."""
+    if cfg.sliding_window is not None:
+        return cache
+    return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n))
+            if k in ("k", "v") else v for k, v in cache.items()}
+
+
+def serve_steps(cfg, params, batch, steps):
+    """``prefill`` of ``batch``, then ``decode_step`` of each batch in
+    ``steps`` at the next position: every call's logits and the final
+    cache (the one-device run the sharded one is held against, and the
+    sharded run's body inside a mesh context)."""
     from repro_torch.models import model as M
-    out = []
-    with _mesh(mesh_shape):
-        for fn in (lambda: M.prefill(params, batch, cfg),
-                   lambda: M.decode_step(params, batch, {}, 0, cfg)):
-            try:
-                fn()
-                out.append(None)
-            except NotImplementedError as e:
-                out.append(str(e))
-    return out
+    S = next(iter(batch.values())).shape[1]
+    with torch.no_grad():
+        logits, cache = M.prefill(params, batch, cfg)
+        outs = [logits]
+        cache = pad_kv(cfg, cache, len(steps))
+        for t, step in enumerate(steps):
+            logits, cache = M.decode_step(params, step, cache, S + t, cfg)
+            outs.append(logits)
+    return outs, cache
+
+
+def sharded_serve(ctx, cfg, params, batch, steps, mesh_shape):
+    """``serve_steps`` on this rank's shards of the full ``params`` and its
+    rows of ``batch`` and ``steps`` under a (data, model) mesh: the logits
+    of every call gathered over the data group and the final cache
+    gathered (``rules.gather_cache``), on the host."""
+    from repro_torch.parallel import rules
+    from repro_torch.tree import tree_map
+    here = lambda tree: tree_map(lambda t: t.to(ctx.device), tree)  # noqa: E731
+    B = next(iter(batch.values())).shape[0]
+    with _mesh(mesh_shape) as mc:
+        local = here(rules.shard_tree(params, rules.param_shardings(mc, cfg)))
+        plan = rules.batch_shardings(mc, cfg, B)
+        cut = lambda b: here(rules.shard_tree(b, {k: plan[k] for k in b}))  # noqa: E731
+        outs, cache = serve_steps(cfg, local, cut(batch), [cut(s) for s in steps])
+        split = B % mc.dp_size == 0
+        outs = [dchannel.all_gather(o, mc.data, 0) if split else o for o in outs]
+        full = rules.gather_cache(cfg, cache, mc, B)
+    return [o.cpu() for o in outs], tree_map(lambda t: t.cpu(), full)
 
 
 def ef_int8(ctx, g, r):
@@ -299,21 +330,86 @@ def shard_round_trip(ctx, cfg, params, mesh_shape):
         return shapes, rules.gather_tree(local, plan)
 
 
-def ring_attention_grad(ctx, q, k, v, hop):
-    """The ring with q, k, v requiring grad: what it raised (the type's
-    name and text), or None."""
+def ring_attention_grad(ctx, q, k, v, hop, do=None, causal=True, window=None):
+    """The ring with this rank's shards of q, k, v requiring grad, and the
+    loss sum(out * do) (``do`` ones when None): what it raised (the text),
+    or this rank's (out, dq, dk, dv) as numpy arrays.  ``hop`` "plain" is
+    ``ring_attention_plain``, "auto" ``ring_attention``, "fa"
+    ``RingAttentionFn`` itself."""
     s = q.shape[1] // ctx.world
     own = slice(ctx.rank * s, (ctx.rank + 1) * s)
     q, k, v = (t[:, own].to(ctx.device).requires_grad_() for t in (q, k, v))
     fn = {"plain": ra.ring_attention_plain, "auto": ra.ring_attention,
-          "fa": ra._ring_fa}[hop]
+          "fa": lambda q, k, v, **kw: ra.RingAttentionFn.apply(
+              q, k, v, kw["group"], kw["causal"], kw["window"])}[hop]
     try:
-        fn(q, k, v, group=ctx.world_group, causal=True, window=None)
+        out = fn(q, k, v, group=ctx.world_group, causal=causal, window=window)
     except NotImplementedError as e:
         return str(e)
-    return None
+    d = torch.ones_like(out) if do is None else do[:, own].to(out)
+    (out * d).sum().backward()
+    return tuple(t.detach().float().cpu().numpy()
+                 for t in (out, q.grad, k.grad, v.grad))
 
 
 def echo_plus_rank(ctx, x):
     """``x + rank``: a reply as large as the job's argument."""
     return x + ctx.rank
+
+
+# -- the dry run -----------------------------------------------------------------
+def real_args(ctx, mc, cfg, shape, seed=0):
+    """The arguments of ``launch.steps.step_fn_for(cfg, shape)``'s step as
+    real tensors of this rank on its device, in the shapes and dtypes of
+    ``input_specs`` under the mesh context ``mc``: (args, their bytes)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import rules
+    cfg = steps.serve_cfg(cfg, shape, mc)
+    specs = steps.input_specs(cfg, shape, mc)
+    _, names = steps.step_fn_for(cfg, shape, mc)
+    dev = ctx.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    plan = rules.param_shardings(mc, cfg)
+    params = rules.shard_tree(M.init_params(cfg, seed, device=dev), plan)
+    batch = {}
+    for k, v in specs["batch"].items():
+        if v.dtype == torch.int32:
+            batch[k] = torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                                     device=dev, dtype=torch.int32)
+        else:
+            batch[k] = torch.randn(v.shape, generator=gen, device=dev).to(v.dtype)
+    real = {"params": params, "batch": batch}
+    if "opt_state" in names:
+        real["opt_state"] = adamw_init(params, getattr(torch, cfg.optimizer_dtype))
+    if "cache" in names:
+        real["cache"] = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                     device=dev)
+        real["cache_len"] = specs["cache_len"]
+    args = [real[n] for n in names]
+    tensors = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+    walk(args)
+    return args, sum(t.numel() * t.element_size() for t in tensors)
+
+
+def real_step_tally(ctx, cfg, shape, mesh_shape):
+    """The dry run's cell run for real on this rank of a (data, model)
+    mesh: (bytes of its arguments, the collectives it issued by kind)."""
+    from repro_torch.launch import steps
+    with _mesh(mesh_shape) as mc:
+        args, nbytes = real_args(ctx, mc, cfg, shape)
+        fn, _ = steps.step_fn_for(cfg, shape, mc)
+        with dchannel.tally() as t:
+            fn(*args)
+    return nbytes, t.kinds()

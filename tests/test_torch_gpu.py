@@ -14,7 +14,9 @@ host (the shared-memory ring's tensor edge), and the device backend
 reduction equal to the threads backend, and a device farm of SW scores
 equal to ``sw_plain``; rank processes on the card (two sharing it over
 gloo: a ring hop, a device farm over two workers, ring attention through
-the FA kernel against the plain hop; NCCL where there are two cards).
+the FA kernel against the plain hop, and its gradient through the FA
+backward kernel; NCCL where there are two cards); and the FA backward
+launched as the first CUDA call of autograd's thread.
 They carry the ``gpu`` marker
 and skip where there is no card.  This file imports neither jax nor the
 reference package, so it runs on a machine that has only the port's
@@ -22,6 +24,12 @@ dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import smith_waterman as sw
 
 pytestmark = pytest.mark.gpu
+ROOT = Path(__file__).resolve().parents[1]
 GAPS = [(10.0, 2.0), (5.0, 2.0)]
 
 
@@ -931,20 +940,68 @@ def test_ring_attention_kernel_hops_equal_the_plain_hop_on_card(dev, causal,
 
 
 def test_ring_attention_kernel_path_refuses_grad_on_card(dev):
-    """The kernel path (bf16 on the card) refuses q, k, v that require
-    grad, as the plain hop does, naming ROADMAP §1 item 11 step 6."""
+    """The kernel path's gradient (bf16 on the card, ``RingAttentionFn``
+    over 2 ranks): the forward and backward kernels each hop — 1 + 2
+    launches of each under ``causal`` — and dq, dk, dv of sum(out · dO)
+    within 1e-2 row-wise relative L2 of autograd through the float32
+    one-device naive attention on the same inputs.  ``ring_attention_plain``
+    still refuses."""
     import _torch_rank_jobs as J
     from repro_torch.core import ranks
+    from repro_torch.models.attention import naive_attention
     gen = torch.Generator().manual_seed(5)
-    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen).to(torch.bfloat16)
-               for _ in range(3))
+    q, k, v, do = (torch.randn((1, 256, 2, 64), generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
     p = ranks.RankPool(2, device="cuda:0", transport="gloo")
     try:
-        msgs = p.run(J.ring_attention_grad, q, k, v, "auto")
-        assert p.launches["fa"] == 0
+        got = p.run(J.ring_attention_grad, q, k, v, "auto", do)
+        assert p.launches["fa"] == 3 and p.launches["fa_bwd"] == 3, p.launches
+        msgs = p.run(J.ring_attention_grad, q, k, v, "plain")
     finally:
         p.close()
-    assert all(m is not None and "item 11 step 6" in m for m in msgs)
+    assert all(isinstance(m, str) and "ring_attention" in m for m in msgs)
+    qf, kf, vf = (t.float().to(dev).requires_grad_() for t in (q, k, v))
+    out = naive_attention(qf, kf, vf, causal=True, window=None)
+    (out * do.float().to(dev)).sum().backward()
+    for i, want in enumerate((out, qf.grad, kf.grad, vf.grad)):
+        mine = torch.from_numpy(np.concatenate([g[i] for g in got], axis=1))
+        want = want.detach().cpu()
+        if i == 0:      # the output, row by row
+            rel = ((mine - want).square().sum(-1).sqrt()
+                   / want.square().sum(-1).sqrt().clamp_min(1e-30))
+            assert rel.max() <= 1e-2, float(rel.max())
+            continue
+        # a gradient by the rule of the bf16 FA backward's card checks: a
+        # row whose gradient cancels (dq of the first query) has a norm
+        # near 0, so its own relative error says nothing
+        assert (mine - want).abs().max() <= 1e-2 * want.abs().max(), i
+        assert (mine - want).norm() <= 1e-2 * want.norm(), i
+
+
+def test_fa_backward_as_the_first_call_of_autograds_thread(dev):
+    """The bf16 backward launch encodes its tensor maps through the driver
+    API, which needs a current context: when it is the first CUDA call of
+    autograd's device thread (a graph whose only node is the attention, in
+    a fresh process, so no earlier backward bound one), it must bind the
+    card's context itself, and match the direct call."""
+    code = textwrap.dedent("""
+        import torch
+        from repro_torch.kernels import flash_attention as fa
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v, do = (torch.randn((1, 2, 256, 64), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=True)
+        torch.autograd.backward(out, do)
+        o, stats = fa.fa_forward_with_stats(q, k, v, causal=True)
+        want = fa.fa_backward(q, k, v, o, do, causal=True, stats=stats)
+        assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+        """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
 
 
 def test_sharded_loss_and_grads_on_card_equal_one_device(dev):

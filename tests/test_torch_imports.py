@@ -22,7 +22,7 @@ PORT_MODULES = [
     "repro_torch.core.ranks", "repro_torch.core.dchannel",
     "repro_torch.parallel", "repro_torch.parallel.ring_attention",
     "repro_torch.parallel.context", "repro_torch.parallel.rules",
-    "repro_torch.launch.mesh",
+    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
     "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
@@ -191,6 +191,31 @@ def test_device_channels_load_torch_only_when_touched():
             "c.ring_send, c.RingChannel, c.double_buffered_ring\n"
             "assert 'torch' in sys.modules\n"
             "assert 'repro_torch.core.ranks' in sys.modules\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dry_run_imports_no_jax_repro_triton_nor_the_fake_group():
+    """``launch.dryrun`` and ``launch.steps`` import no ``jax``, nothing of
+    ``repro`` and no ``triton``; neither they nor ``import repro_torch``
+    load torch's ``fake`` process group (``torch.testing._internal
+    .distributed``, an internal module of torch's own tests), which only
+    ``core.ranks.simulated`` imports, when called.  (``import torch``
+    itself loads other parts of ``torch.testing._internal`` in some
+    versions, so the pin is on the distributed part.)"""
+    code = ("import sys\n"
+            "import repro_torch\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.steps\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.startswith('torch.testing._internal.distributed'))\n"
+            "assert not bad, bad\n"
+            "from repro_torch.core import ranks\n"
+            "with ranks.simulated(4):\n"
+            "    pass\n"
+            "assert 'torch.testing._internal.distributed.fake_pg' in sys.modules\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -7,7 +7,16 @@ hops are held: ``ring_attention`` on CPU tensors (the reference's hop,
 ``_chunk_body``) and the flash-attention hops of the card path, merged by
 their statistics, through the wrapper's plain version on CPU tensors.
 Tolerance 2e-5, the reference's own for ring attention in float32
-(``tests/test_multidevice.py``)."""
+(``tests/test_multidevice.py``).
+
+The gradient (``RingAttentionFn``): on 8 CPU ranks the port's dq, dk, dv
+of sum(ring_attention(q, k, v) · dO) against ``jax.grad`` of the same
+loss through the reference's ring under ``shard_map`` over 8 forced host
+devices, and against ``jax.grad`` of the one-device ``attention_ref``, at
+atol 5e-5 / rtol 1e-4: causal MHA, grouped-query (H 4, Hkv 2), and a
+window whose hops hold rows with no visible key (the geometry of
+``test_window_case_has_hops_with_no_visible_key``: shards of 16, window
+12).  One subprocess computes every reference value."""
 import json
 import os
 import subprocess
@@ -34,23 +43,46 @@ CASES = {  # name: (Hkv, causal, window)
     "gqa_window": (1, True, 20),
 }
 
+GW = 8                  # ranks of the gradient cases
+GB, GS, GH, GD = 1, 128, 4, 16
+GRAD_CASES = {  # name: (Hkv, causal, window)
+    "grad_causal": (4, True, None),
+    "grad_gqa": (2, True, None),
+    "grad_window": (4, True, 12),
+}
+GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
+
 REFERENCE = """
 import json, sys
 import jax, jax.numpy as jnp, numpy as np
-from jax.sharding import PartitionSpec as P
-from repro.compat import make_mesh, shard_map
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.compat import shard_map
+from repro.kernels.ref import attention_ref
 from repro.parallel.ring_attention import ring_attention
-mesh = make_mesh((4,), ("sp",))
 data = np.load(sys.argv[2])
-cases = json.loads(sys.argv[3])
+cases, grad_cases = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 out = {}
-for name, (hkv, causal, window) in cases.items():
-    q, k, v = (jnp.asarray(data[name + x]) for x in "qkv")
-    f = jax.jit(shard_map(
+def ring(n, causal, window):
+    mesh = Mesh(np.array(jax.devices()[:n]), ("sp",))
+    return shard_map(
         lambda q, k, v: ring_attention(q, k, v, axis_name="sp",
                                        causal=causal, window=window),
-        mesh=mesh, in_specs=(P(None, "sp"),) * 3, out_specs=P(None, "sp")))
-    out[name] = np.asarray(f(q, k, v))
+        mesh=mesh, in_specs=(P(None, "sp"),) * 3, out_specs=P(None, "sp"))
+for name, (hkv, causal, window) in cases.items():
+    q, k, v = (jnp.asarray(data[name + x]) for x in "qkv")
+    out[name] = np.asarray(jax.jit(ring(4, causal, window))(q, k, v))
+for name, (hkv, causal, window) in grad_cases.items():
+    q, k, v, do = (jnp.asarray(data[name + x]) for x in ("q", "k", "v", "do"))
+    f = ring(8, causal, window)
+    g = jax.jit(jax.grad(lambda q, k, v: (f(q, k, v) * do).sum(),
+                         argnums=(0, 1, 2)))(q, k, v)
+    t = lambda x: x.transpose(0, 2, 1, 3)
+    one = lambda q, k, v: (t(attention_ref(t(q), t(k), t(v), causal=causal,
+                                           window=window)) * do).sum()
+    g1 = jax.jit(jax.grad(one, argnums=(0, 1, 2)))(q, k, v)
+    for x, a, b in zip("qkv", g, g1):
+        out[name + "d" + x] = np.asarray(a)
+        out[name + "one_d" + x] = np.asarray(b)
 np.savez(sys.argv[1], **out)
 """
 
@@ -62,6 +94,11 @@ def _inputs():
         out[name + "q"] = rng.standard_normal((B, S, H, D)).astype(np.float32)
         out[name + "k"] = rng.standard_normal((B, S, hkv, D)).astype(np.float32)
         out[name + "v"] = rng.standard_normal((B, S, hkv, D)).astype(np.float32)
+    for name, (hkv, _, _) in GRAD_CASES.items():
+        out[name + "q"] = rng.standard_normal((GB, GS, GH, GD)).astype(np.float32)
+        out[name + "k"] = rng.standard_normal((GB, GS, hkv, GD)).astype(np.float32)
+        out[name + "v"] = rng.standard_normal((GB, GS, hkv, GD)).astype(np.float32)
+        out[name + "do"] = rng.standard_normal((GB, GS, GH, GD)).astype(np.float32)
     return out
 
 
@@ -74,11 +111,11 @@ def data():
 def ref(tmp_path_factory, data):
     tmp = tmp_path_factory.mktemp("ref")
     np.savez(tmp / "in.npz", **data)
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(REFERENCE), str(tmp / "out.npz"),
-         str(tmp / "in.npz"), json.dumps(CASES)],
+         str(tmp / "in.npz"), json.dumps(CASES), json.dumps(GRAD_CASES)],
         capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return dict(np.load(tmp / "out.npz"))
@@ -87,6 +124,15 @@ def ref(tmp_path_factory, data):
 @pytest.fixture(scope="module")
 def pool():
     p = ranks.RankPool(W, device="cpu", transport="gloo")
+    procs = list(p._procs)
+    yield p
+    p.close()
+    assert not any(q.is_alive() for q in procs)
+
+
+@pytest.fixture(scope="module")
+def pool8():
+    p = ranks.RankPool(GW, device="cpu", transport="gloo")
     procs = list(p._procs)
     yield p
     p.close()
@@ -138,12 +184,68 @@ def test_window_case_has_hops_with_no_visible_key(data):
     assert seen[:4].all() and not seen[-1]
 
 
+def _naive_grads(q, k, v, do, causal, window):
+    """out and (dq, dk, dv) of sum(out · do) through autograd of the
+    port's one-device ``naive_attention`` (float64)."""
+    from repro_torch.models.attention import naive_attention
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    out = naive_attention(q, k, v, causal=causal, window=window)
+    (out * do.double()).sum().backward()
+    return out.detach(), (q.grad, k.grad, v.grad)
+
+
 @pytest.mark.parametrize("hop", ["plain", "auto", "fa"])
 def test_inputs_that_require_grad_are_refused(pool, data, hop):
-    """Ring attention carries no gradient yet: with q, k, v requiring one,
-    both paths (the plain hop, and the flash-attention hops through the
-    wrapper's plain version here) raise naming ROADMAP §1 item 11 step 6
-    instead of returning a detached result."""
+    """With q, k, v requiring grad, ``ring_attention_plain`` (the forward's
+    oracle) still raises rather than return a detached result, naming
+    ``ring_attention``; ``ring_attention`` ("auto") and
+    ``RingAttentionFn`` ("fa", through the wrappers' plain versions on
+    CPU tensors) return the output and the gradients of sum(out), equal
+    to autograd's through the plain one-device attention at 2e-5."""
     q, k, v = (torch.from_numpy(data["causal" + x]) for x in "qkv")
-    for msg in pool.run(J.ring_attention_grad, q, k, v, hop):
-        assert msg is not None and "item 11 step 6" in msg
+    got = pool.run(J.ring_attention_grad, q, k, v, hop)
+    if hop == "plain":
+        for msg in got:
+            assert isinstance(msg, str) and "ring_attention" in msg
+        return
+    want_out, want = _naive_grads(q, k, v, torch.ones(q.shape), True, None)
+    cat = lambda i: np.concatenate([g[i] for g in got], axis=1)  # noqa: E731
+    np.testing.assert_allclose(cat(0), want_out.numpy(), atol=TOL, rtol=0)
+    for i, w in enumerate(want, start=1):
+        np.testing.assert_allclose(cat(i), w.numpy(), atol=TOL, rtol=0)
+
+
+def _grads8(pool8, data, name, hop="auto"):
+    _, causal, window = GRAD_CASES[name]
+    q, k, v, do = (torch.from_numpy(data[name + x]) for x in ("q", "k", "v", "do"))
+    return pool8.run(J.ring_attention_grad, q, k, v, hop, do, causal, window)
+
+
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_gradients_equal_jax_grad_of_the_reference_ring(pool8, data, ref, name):
+    """dq, dk, dv on 8 CPU ranks against ``jax.grad`` of the reference's
+    ring under ``shard_map`` over 8 host devices, and of the one-device
+    ``attention_ref``: the backward ring's merged statistics, the
+    accumulators that travel with their blocks, and the hops with no
+    visible key."""
+    got = _grads8(pool8, data, name)
+    for i, x in enumerate("qkv", start=1):
+        mine = np.concatenate([g[i] for g in got], axis=1)
+        for key in (name + "d" + x, name + "one_d" + x):
+            np.testing.assert_allclose(mine, ref[key], atol=GRAD_ATOL,
+                                       rtol=GRAD_RTOL, err_msg=key)
+
+
+def test_each_rank_ends_with_its_own_blocks_dk_dv(pool8, data, ref):
+    """After the backward ring every rank holds the dk, dv of the block it
+    owns — rows [r·S_loc, (r + 1)·S_loc) of the full gradient — and not
+    its neighbour's: the accumulators' last send brought them home."""
+    got = _grads8(pool8, data, "grad_causal", hop="fa")
+    s_loc = GS // GW
+    for x, i in (("k", 2), ("v", 3)):
+        full = ref["grad_causald" + x]
+        for r, g in enumerate(got):
+            own = full[:, r * s_loc:(r + 1) * s_loc]
+            nxt = full[:, ((r + 1) % GW) * s_loc:((r + 1) % GW + 1) * s_loc]
+            np.testing.assert_allclose(g[i], own, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+            assert np.abs(g[i] - nxt).max() > 1e-2
