@@ -38,11 +38,13 @@ over an otherwise identical farm.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, List, Optional, Sequence, Type
 
-from .graph import Graph
+from .graph import Graph, WorkerVertex
 from .sched import make_scheduler
-from .skeleton import Farm, FarmStats, FnNode, _SeqNode, ff_node
+from .skeleton import (Farm, FarmStats, FnNode, _coerce_tracer, _SeqNode,
+                       ff_node)
 from .spsc import SPSCQueue
 
 __all__ = ["ff_node", "FnNode", "TaskFarm", "FarmStats"]
@@ -61,6 +63,14 @@ class TaskFarm:
         ``"costmodel"``) or a ``repro_torch.core.sched.Scheduler``.
     speculative: enable straggler re-dispatch.
     straggler_factor: age threshold multiplier over p95 latency.
+    trace: ``True`` or an :class:`~repro_torch.core.obs.Tracer`: every
+        vertex records into its lane (the lanes of earlier runs of the
+        same Tracer), each worker's first task of a run and 1 in
+        ``sample`` after it as ``svc`` spans with ``{"run", "tag"}``, and
+        each run one ``run`` span on the ``ff-farm`` lane, from ``run()``
+        to ``wait()``'s return, with ``{"run", "tasks", "first_svc"}``
+        (the first task's start).  ``None`` (the default): no clock read
+        and no allocation in the farm.
     """
 
     def __init__(
@@ -74,6 +84,7 @@ class TaskFarm:
         speculative: bool = False,
         straggler_factor: float = 4.0,
         min_straggler_age: float = 0.05,
+        trace: Any = None,
     ):
         assert nworkers >= 1
         make_scheduler(scheduling)  # raises ValueError on an unknown policy
@@ -91,6 +102,9 @@ class TaskFarm:
         self._graph: Optional[Graph] = None
         self.results: List[Any] = []
         self.stats = FarmStats()
+        self.tracer = _coerce_tracer(trace)
+        self._t_run = 0.0
+        self._emitted = 0
 
     # -- wiring (paper Fig. 2 API) -----------------------------------------
     def add_emitter(self, node: ff_node) -> "TaskFarm":
@@ -111,6 +125,9 @@ class TaskFarm:
 
     # -- lifecycle -----------------------------------------------------------
     def run(self) -> "TaskFarm":
+        if self.tracer is not None:
+            self._t_run = time.monotonic()
+            self._emitted = self.stats.tasks_emitted
         assert self._emitter is not None, "farm needs an emitter"
         if len(self._workers) == 1 and self.nworkers > 1:
             self._workers = self._workers * self.nworkers
@@ -129,12 +146,23 @@ class TaskFarm:
         self._graph = net.to_graph(queue_class=self.queue_class,
                                    capacity=self.capacity)
         self._graph.results = self.results  # alias the pre-exposed sink
+        self._graph.tracer = self.tracer
         self._graph.run()
         return self
 
     def wait(self, timeout: Optional[float] = None) -> List[Any]:
         assert self._graph is not None, "call run() first"
-        return self._graph.wait(timeout)
+        out = self._graph.wait(timeout)
+        if self.tracer is not None:
+            g = self._graph
+            firsts = [v.t_first for v in g.vertices
+                      if isinstance(v, WorkerVertex) and v.t_first]
+            self.tracer.vertex("ff-farm").span(
+                "run", self._t_run, time.monotonic(),
+                {"run": g.run_id,
+                 "tasks": self.stats.tasks_emitted - self._emitted,
+                 "first_svc": min(firsts) if firsts else None})
+        return out
 
     def run_and_wait(self) -> List[Any]:
         return self.run().wait()

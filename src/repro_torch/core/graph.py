@@ -616,6 +616,10 @@ class WorkerVertex(Vertex):
     the dispatch arbiter whenever its inbound ring runs dry, which is what
     triggers a steal from the deepest peer backlog."""
 
+    # traced runs: the start stamp of this run's first task (its ``svc``
+    # span is always sampled in), which ``TaskFarm`` reads after the join
+    t_first = 0.0
+
     def __init__(self, node: ff_node, index: int, stats: FarmStats, *,
                  survivable: bool = False, idle_ring: Optional[Any] = None,
                  record_service: bool = False, name: str = "ff-worker"):
@@ -630,6 +634,9 @@ class WorkerVertex(Vertex):
         q_in, q_out = self.ins[0], self.outs[0]
         stats = self.stats
         tr = self.tracer
+        if tr is not None:
+            tr.rewind()
+            run = self.graph.run_id
         record = self.record_service  # opt-in: only pay the timing when a
         signaled = False              # policy consumes the EWMA
         spins = 0
@@ -662,8 +669,10 @@ class WorkerVertex(Vertex):
                     dt if prev is None else 0.8 * prev + 0.2 * dt
             else:
                 result = self.node.svc(tok.payload)
-            if tr is not None:
-                tr.end(tb, "svc")
+            if tr is not None and tb:
+                if not self.t_first:
+                    self.t_first = tb
+                tr.end(tb, "svc", {"run": run, "tag": tok.tag})
             out = Token(tag=tok.tag, payload=result,
                         issued_at=tok.issued_at, duplicate=tok.duplicate)
             if not self._push_abortable(q_out, out):
@@ -804,8 +813,10 @@ class Graph:
         # back into the IR node's stats once the vertices have joined
         self.finalizers: List[Callable[[], None]] = []
         # observability: when set (obs.Tracer), run() hands each vertex its
-        # own single-writer lane before the threads start
+        # own single-writer lane before the threads start, and takes the
+        # run id the run's spans share
         self.tracer = None
+        self.run_id: Optional[int] = None
         # drain-time taps: callables run exactly once inside wait(), after
         # the vertex threads have joined but BEFORE the finalizers tear any
         # telemetry down — the only point where "the stream is complete"
@@ -838,6 +849,7 @@ class Graph:
         assert not self._threads, "graph already running"
         tr = self.tracer
         if tr is not None:
+            self.run_id = tr.next_run()
             for v in self.vertices:
                 if v.tracer is None:
                     v.tracer = tr.vertex(v.name, v.path)

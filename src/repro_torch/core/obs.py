@@ -8,18 +8,24 @@ lowering shares, built around that constraint:
 
 :class:`Tracer` / :class:`VertexTracer`
     Typed span/instant events (``svc`` begin/end, ``stall`` push-waits,
-    ``steal``, ``spill``, ``eos``, ``loop`` tokens) recorded into
-    bounded per-vertex buffers.  Spans are sampled 1-in-N with the same
-    mask trick the ordered-farm latency sampling uses (``n & mask``), so
-    the hot path pays ~two clock reads on a sampled-in event, one
-    counter increment otherwise — and **nothing at all** when tracing is
-    off, because vertices then carry ``tracer = None`` and never enter
-    this module (pinned by the tracer-off allocation test).  Every
-    buffer has one writer — its vertex — so the single-writer discipline
-    of the runtime survives; procs vertices ship their buffers back over
-    the existing control-ring machinery at EOS, and the clock is
-    ``time.monotonic()`` (CLOCK_MONOTONIC — system-wide on Linux), so
-    lanes from different processes share one timeline.
+    ``life``, a farm's ``run``; ``steal``, ``spill``, ``eos``, ``loop``
+    tokens) recorded into bounded per-vertex buffers.  Spans are sampled
+    1-in-N with the same mask trick the ordered-farm latency sampling
+    uses (``n & mask``), so the hot path pays ~two clock reads on a
+    sampled-in event, one counter increment otherwise — and **nothing at
+    all** when tracing is off, because vertices then carry
+    ``tracer = None`` and never enter this module (pinned by the
+    tracer-off allocation test).  Every buffer has one writer — its
+    vertex — so the single-writer discipline of the runtime survives;
+    procs vertices ship their buffers back over the existing
+    control-ring machinery at EOS, and the clock is ``time.monotonic()``
+    (CLOCK_MONOTONIC — system-wide on Linux), so lanes from different
+    processes share one timeline.  A Tracer handed to successive runs
+    gives the k-th vertex of a qualname in each run the same lane (the
+    previous run's vertex has joined, so the lane still has one writer),
+    and numbers each traced run: a
+    farm worker's ``svc`` span carries that run id and the task's tag,
+    and ``TaskFarm`` adds one ``run`` span a run.
 
 :class:`Trace`
     The merged snapshot: one lane per vertex (qualified by IR path, so
@@ -54,12 +60,6 @@ __all__ = [
     "Gauge", "Histogram", "qualname", "farm_stats_snapshot", "RunReport",
 ]
 
-#: event-kind vocabulary (the typed part of "typed events"); spans and
-#: instants share one namespace so a lane reads as one story
-SPAN_KINDS = ("svc", "stall", "compile", "call", "life")
-INSTANT_KINDS = ("steal", "spill", "eos", "loop", "devices",
-                 "alert", "drift")
-
 _monotonic = time.monotonic
 
 
@@ -91,7 +91,8 @@ class VertexTracer:
 
     Events are plain tuples ``(kind, t0, t1)`` (``t1 is None`` for an
     instant, optionally ``(kind, t0, t1, args)``), picklable as-is for
-    the procs EOS ship-back.
+    the procs EOS ship-back.  ``rewind()`` makes the next ``begin()``
+    sampled in, so a run's first span is recorded whatever the sample.
     """
 
     __slots__ = ("name", "path", "pid", "capacity", "events", "dropped",
@@ -122,14 +123,21 @@ class VertexTracer:
             return 0.0
         return _monotonic()
 
-    def end(self, t0: float, kind: str) -> None:
+    def end(self, t0: float, kind: str, args: Optional[dict] = None) -> None:
         """Close the span opened by the matching :meth:`begin`."""
         if not t0:
             return
         if len(self.events) < self.capacity:
-            self.events.append((kind, t0, _monotonic()))
+            if args is None:
+                self.events.append((kind, t0, _monotonic()))
+            else:
+                self.events.append((kind, t0, _monotonic(), args))
         else:
             self.dropped += 1
+
+    def rewind(self) -> None:
+        """Sample the next :meth:`begin` in (a run's first task)."""
+        self._n = 0
 
     def tick(self, kind: str) -> None:
         """Sampled instant — for per-item-frequency events (loop tokens);
@@ -175,18 +183,37 @@ class Tracer:
     ``sample`` is rounded up to a power of two (the mask trick needs
     it); ``capacity`` bounds every lane independently.  Construction and
     lane registration happen at lowering/start time, never on the data
-    path."""
+    path.  Hand a Tracer to one run at a time: successive runs share its
+    lanes."""
 
     def __init__(self, *, sample: int = 16, capacity: int = 2048):
         self.sample = _pow2(sample)
         self.capacity = int(capacity)
         self._lanes: List[VertexTracer] = []
+        self._by_qual: Dict[str, List[VertexTracer]] = {}
+        self._taken: Dict[str, int] = {}    # lanes handed out this run
+        self._runs = 0
 
     def vertex(self, name: str, path: str = "") -> VertexTracer:
-        vt = VertexTracer(name, path, sample=self.sample,
-                          capacity=self.capacity)
-        self._lanes.append(vt)
-        return vt
+        """The lane of the k-th vertex of ``name@path`` in this run (in
+        this process): the one the k-th vertex of an earlier run wrote, or
+        a new one."""
+        qual = qualname(name, path)
+        lanes = self._by_qual.setdefault(qual, [])
+        k = self._taken.get(qual, 0)
+        self._taken[qual] = k + 1
+        if k == len(lanes):
+            lanes.append(VertexTracer(name, path, sample=self.sample,
+                                      capacity=self.capacity))
+            self._lanes.append(lanes[k])
+        return lanes[k]
+
+    def next_run(self) -> int:
+        """Start a run: a new run id (0, 1, ...), the identifier one run's
+        spans share, and its vertices take the lanes from the first again."""
+        self._taken.clear()
+        self._runs += 1
+        return self._runs - 1
 
     def absorb(self, name: str, path: str, pid: int, events: List[tuple],
                dropped: int = 0) -> None:

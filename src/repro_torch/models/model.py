@@ -346,38 +346,76 @@ def batch_pspecs(cfg: ModelConfig, batch: int, dp_size: int) -> Dict[str, Any]:
 # ==========================================================================
 # blocks
 # ==========================================================================
+class _LeaveRange(torch.autograd.Function):
+    """Identity on a chunk's differentiable inputs.  Its backward runs once
+    every backward node of the chunk has (the casts of the gradients back
+    to the inputs' dtypes last), and leaves the range ``box`` holds."""
+
+    @staticmethod
+    def forward(ctx, box, *inputs):
+        ctx.box = box
+        return inputs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.box:
+            ctx.box.pop().__exit__(None, None, None)
+        return (None, *grads)
+
+
+def _ce_range(fn: Callable) -> Callable:
+    """``fn(x_c, labels_c, head, ...)`` under a profiler range
+    ("train.ce"), and while a profiler runs, the chunk's backward under
+    one too: a prehook on the output's node enters it, the backward of
+    :class:`_LeaveRange` on ``x_c`` and ``head`` leaves it.  Off, one flag
+    read a chunk."""
+    def ranged(x_c, labels_c, head, *args):
+        box: List[Any] = []
+        traced = (torch.autograd.profiler._is_profiler_enabled
+                  and torch.is_grad_enabled())
+        if traced:
+            x_c, head = _LeaveRange.apply(box, x_c, head)
+        with record_function("train.ce"):
+            out = fn(x_c, labels_c, head, *args)
+        if traced and out.grad_fn is not None:
+            out.grad_fn.register_prehook(lambda _: box.append(
+                record_function("train.ce").__enter__()))
+        return out
+    return ranged
+
+
+@_ce_range
 def _chunk_ce(x_c: torch.Tensor, labels_c: torch.Tensor, head: torch.Tensor,
               vocab: int) -> torch.Tensor:
     """Per-token cross entropy of one chunk: logits in f32, the vocab
-    padding sliced off.  A profiler range ("train.ce") covers it, the
-    backward's recompute included."""
-    with record_function("train.ce"):
-        logits = (x_c.float() @ head.float().T)[..., :vocab]
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
-        return lse - lab
+    padding sliced off.  Under the "train.ce" range (:func:`_ce_range`):
+    the forward, its recompute, and while a profiler runs, the backward."""
+    logits = (x_c.float() @ head.float().T)[..., :vocab]
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+    return lse - lab
 
 
+@_ce_range
 def _chunk_ce_sharded(x_c: torch.Tensor, labels_c: torch.Tensor,
                       head: torch.Tensor, vocab: int, group) -> torch.Tensor:
     """:func:`_chunk_ce` with ``head`` this rank's rows of the vocab: the
     max over the group on a detached value (a stabiliser), the sums of
     exponentials and the label logit summed over the group, the vocab
     padding masked by global id."""
-    with record_function("train.ce"):
-        logits = x_c.float() @ head.float().T              # (B, c, V/mp)
-        v_loc = logits.shape[-1]
-        lo = group.rank * v_loc
-        gid = lo + torch.arange(v_loc, device=logits.device)
-        logits = torch.where(gid < vocab, logits, -1e30)
-        gmax = pmax(logits.amax(dim=-1), group)
-        se = torch.exp(logits - gmax[..., None]).sum(dim=-1)
-        lse = torch.log(psum_compat(se, group)) + gmax
-        loc = labels_c.long() - lo
-        ok = (loc >= 0) & (loc < v_loc)
-        lab = torch.gather(logits, -1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
-        lab = psum_compat(torch.where(ok, lab, 0.0), group)
-        return lse - lab
+    logits = x_c.float() @ head.float().T              # (B, c, V/mp)
+    v_loc = logits.shape[-1]
+    lo = group.rank * v_loc
+    gid = lo + torch.arange(v_loc, device=logits.device)
+    logits = torch.where(gid < vocab, logits, -1e30)
+    gmax = pmax(logits.amax(dim=-1), group)
+    se = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+    lse = torch.log(psum_compat(se, group)) + gmax
+    loc = labels_c.long() - lo
+    ok = (loc >= 0) & (loc < v_loc)
+    lab = torch.gather(logits, -1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+    lab = psum_compat(torch.where(ok, lab, 0.0), group)
+    return lse - lab
 
 
 def _vocab_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
