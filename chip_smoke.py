@@ -172,6 +172,7 @@ import contextlib
 import functools
 import gc
 import glob
+import itertools
 import json
 import os
 import re
@@ -200,6 +201,9 @@ REGIMES = [(10.0, "10-2k"), (5.0, "5-2k")]
 GAP_EXTEND = 2.0
 SAMPLE = 256                  # subjects checked against the plain version
 TIMING_CHUNK = 4096           # subjects per launch in the chunk-shape timing rows
+# (Qp, B) of the SW kernel-alone sweep beside the block kernel's crossover
+# (PERF.md): Qp past the warp kernel's 1024 rows, B on both sides of it
+SW_SWEEP = ([1152, 4096, 8192], [1, 8, 132, 133, 4096])
 OPS_PER_CELL = 15             # f32 ops per (query lane, subject char), from the .cu
 PEAK_F32 = 67e12              # H100 SXM f32 outside the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s
@@ -389,7 +393,7 @@ def phase_exact(dev, sw, ops, ref):
     rng = np.random.default_rng(11)
     dlens = [1, 2, 17, 352, 511, 512, 513, 2000]
     cases, worst = 0, 0.0
-    for qlen in [1, 24, 128, 129, 144, 497, 1000, 1024, 4000]:
+    for qlen in [1, 24, 128, 129, 144, 497, 1000, 1024, 4000, 5147]:
         query = torch.as_tensor(rng.integers(0, 20, qlen).astype(np.int32),
                                 device=dev)
         prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
@@ -398,8 +402,14 @@ def phase_exact(dev, sw, ops, ref):
         hole = rng.random(700) < 0.2
         gappy[hole] = rng.integers(A, A + 9, int(hole.sum()))  # chars >= A
         subjects += [gappy, np.full(40, A, np.int32)]          # + all padding
-        subj, lens = sw.pack_subjects(subjects, A, dev)
-        for go, ge in [(10.0, 2.0), (5.0, 2.0), (10.3, 2.1)]:
+        batches = [sw.pack_subjects(subjects, A, dev)]
+        if prof.shape[1] > sw.WARP_QP:   # the block kernel, then the strips
+            more = [rng.integers(0, 20, n).astype(np.int32) for n in
+                    rng.integers(1, 700, sw.STRIP_MIN_B - len(subjects))]
+            batches.append(sw.pack_subjects(subjects + more, A, dev))
+        paths = [sw._sw_path(prof.shape[1], s.shape[0]) for s, _ in batches]
+        for (subj, lens), (go, ge) in itertools.product(
+                batches, [(10.0, 2.0), (5.0, 2.0), (10.3, 2.1)]):
             got = sw.sw_batch(prof, subj, lens, gap_open=go, gap_extend=ge,
                               q_len=q_len)
             live = torch.arange(subj.shape[1], device=dev) < lens[:, None]
@@ -408,17 +418,18 @@ def phase_exact(dev, sw, ops, ref):
             err = float((got - want).abs().max())
             worst = max(worst, err)
             check(torch.equal(got, want),
-                  f"kernel != plain at q={qlen} gaps={go}-{ge}: "
-                  f"{got.tolist()} vs {want.tolist()}")
+                  f"kernel != plain at q={qlen} B={subj.shape[0]} "
+                  f"gaps={go}-{ge}: {got.tolist()} vs {want.tolist()}")
             # one subject alone, through the padded entry point (B = 1)
             one = ops.smith_waterman(query, torch.as_tensor(subjects[3],
                                                             device=dev),
                                      gap_open=go, gap_extend=ge)
             check(float(one) == float(want[3]),
                   f"smith_waterman != plain at q={qlen} gaps={go}-{ge}")
-            cases += len(subjects) + 1
+            cases += subj.shape[0] + 1
         print(f"exact q={qlen:5d} Qp={prof.shape[1]:5d}: "
-              f"{len(subjects)} subjects x 3 regimes equal", flush=True)
+              f"{' + '.join(f'{s.shape[0]} subjects ({p})' for (s, _), p in zip(batches, paths))}"
+              f" x 3 regimes equal", flush=True)
     qs, ds = "HEAGAWGHEE", "PAWHEAE"
     m = ops.BLOSUM50.numpy()
     want = ref.sw_numpy(qs, ds, lambda a, b: float(
@@ -678,12 +689,15 @@ def phase_timing(dev, sw, ops):
     """Per-launch kernel time at the main path's shapes, the plain
     version's, and the bound: one subject per launch (the one-subject
     farm's shape, D=352 padded to the 512 tile) and a chunk of
-    ``TIMING_CHUNK`` subjects of D=352 per launch (the chunked search's)."""
+    ``TIMING_CHUNK`` subjects of D=352 per launch (the chunked search's),
+    at queries of the warp kernel (1000, 144) and of the long ones (1500,
+    4000: the block kernel at one subject, the strip kernel at a chunk);
+    then the kernel alone over ``SW_SWEEP``, the path each shape takes."""
     rng = np.random.default_rng(5)
     A = ops.BLOSUM50.shape[0]
     rows = []
     for b, dp in ((1, 512), (TIMING_CHUNK, MEAN_LEN)):
-        for qlen in (1000, 144):
+        for qlen in (1000, 144, 1500, 4000):
             query = torch.as_tensor(rng.integers(0, 20, qlen).astype(np.int32),
                                     device=dev)
             prof, q_len = ops.build_profile(query, ops.BLOSUM50.to(dev))
@@ -710,11 +724,26 @@ def phase_timing(dev, sw, ops):
                              plain_ms=plain, bound_ms=bound_ms,
                              bound_by=bound_by, share=bound_ms / kern,
                              gcups=rate))
-            print(f"timing q={qlen} B={b} d={dlen} (Dp={dp}): kernel "
+            print(f"timing q={qlen} B={b} d={dlen} (Dp={dp}): "
+                  f"{sw._sw_path(prof.shape[1], b)} kernel "
                   f"{kern:.6f} ms/launch, plain {plain:.3f} ms, bound "
                   f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / kern:.4f} of "
                   f"the bound, kernel GCUPS {rate:.3f}, library: none (no "
                   f"PyTorch call computes SW)", flush=True)
+    for qp, b in itertools.product(*SW_SWEEP):
+        prof, q_len = ops.build_profile(torch.as_tensor(
+            rng.integers(0, 20, qp).astype(np.int32), device=dev),
+            ops.BLOSUM50.to(dev))
+        subj = torch.as_tensor(rng.integers(0, 20, (b, MEAN_LEN))
+                               .astype(np.int32), device=dev)
+        lens = torch.full((b,), MEAN_LEN, dtype=torch.int32, device=dev)
+        kern = cuda_ms(lambda: sw.sw_batch(
+            prof, subj, lens, gap_open=10.0, gap_extend=GAP_EXTEND,
+            q_len=q_len), iters=5 if b == TIMING_CHUNK else 20, warmup=2)
+        print(f"timing sweep Qp={qp} B={b} d={MEAN_LEN}: "
+              f"{sw._sw_path(qp, b)} kernel {kern:.6f} ms/launch, kernel "
+              f"GCUPS {q_len * MEAN_LEN * b / (kern * 1e-3) / 1e9:.3f}",
+              flush=True)
     return rows
 
 

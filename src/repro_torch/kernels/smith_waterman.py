@@ -3,11 +3,12 @@ PyTorch version.
 
 Counterpart of ``repro.kernels.smith_waterman`` (the Pallas TPU kernel
 ``_sw_kernel`` behind ``sw_pallas``).  :func:`sw_batch` scores one query
-profile against a batch of subjects: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/smith_waterman.cu`` and counts the launch; on
-a CPU tensor it runs :func:`sw_plain`.  There is no fallback from the
-kernel to the plain version.  :func:`pack_subjects` builds its input: a
-database search hands it a chunk of subjects per launch.
+profile against a batch of subjects: on a CUDA tensor it launches one of
+the hand-written kernels in ``csrc/smith_waterman.cu`` and counts the
+launch, in all and by path; on a CPU tensor it runs :func:`sw_plain`.
+There is no fallback from the kernel to the plain version.
+:func:`pack_subjects` builds its input: a database search hands it a chunk
+of subjects per launch.
 
 :func:`sw_plain` is eager PyTorch on whatever device its inputs are on, with
 the kernel's arithmetic: F in closed form, an exclusive prefix-max of
@@ -18,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["sw_batch", "sw_plain", "pack_subjects", "launch_count",
-           "reset_launch_count", "DEFAULT_TILE", "MAX_QP", "NEG"]
+           "launch_counts", "reset_launch_count", "DEFAULT_TILE", "MAX_QP",
+           "NEG"]
 
 NEG = -1e9
 DEFAULT_TILE = 512   # subject chars per padding bucket
@@ -31,7 +33,11 @@ MAX_QP = 8192        # the reference's documented one-block query limit
 WARP_QP = 1024       # largest Qp of the warp kernel (one warp per subject)
 _MAX_SMEM = 232448   # bytes of shared memory a block may opt in to (H100)
 
+STRIP_MIN_B = 133    # fewest subjects a launch gives the strip kernel
+PATHS = ("warp", "strip", "block")
+
 LAUNCHES = 0         # kernel launches since the last reset
+_BY_PATH = dict.fromkeys(PATHS, 0)   # the same launches, by path
 _LAUNCH_LOCK = threading.Lock()   # farm workers launch from several threads
 
 
@@ -40,16 +46,34 @@ def launch_count() -> int:
         return LAUNCHES
 
 
+def launch_counts() -> Dict[str, int]:
+    """Launches since the last reset by path (:func:`_sw_path`)."""
+    with _LAUNCH_LOCK:
+        return dict(_BY_PATH)
+
+
 def reset_launch_count() -> None:
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES = 0
+        _BY_PATH.update(dict.fromkeys(PATHS, 0))
 
 
-def _count_launch() -> None:
+def _count_launch(path: str) -> None:
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
+        _BY_PATH[path] += 1
+
+
+def _sw_path(Qp: int, B: int) -> str:
+    """The kernel ``sw_launch`` runs for a profile of Qp rows and B
+    subjects: ``"warp"`` up to 1024 rows; above, ``"strip"`` from
+    ``STRIP_MIN_B`` subjects and ``"block"`` below (the rule of
+    ``sw_path`` in ``csrc/smith_waterman.cu``)."""
+    if Qp <= WARP_QP:
+        return "warp"
+    return "strip" if B >= STRIP_MIN_B else "block"
 
 
 def sw_plain(profile: torch.Tensor, subject: torch.Tensor, go: float,
@@ -114,7 +138,7 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
     lib = load("smith_waterman")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sw_launch.argtypes = [p, p, p, p, i, i, i, i, i, f, f, p]
+    lib.sw_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, p]
     lib.sw_launch.restype = i
     lib.sw_error_string.argtypes = [i]
     lib.sw_error_string.restype = ctypes.c_char_p
@@ -131,11 +155,16 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
     (B,) int32, chars at or past ``lengths[b]`` are skipped too.
     Returns (B,) f32 on the profile's device.  A CUDA profile launches one
     kernel on the current stream and does not synchronise.  The kernel is
-    chosen by Qp alone: Qp <= 1024 runs the warp kernel (one warp per
+    chosen from (Qp, B) by :func:`_sw_path` and tallied by
+    :func:`launch_counts`: Qp <= 1024 runs the warp kernel (one warp per
     subject, the profile in shared memory, so A * Qp * 4 bytes must fit a
-    block's 227 KB); Qp > 1024 runs the block kernel (one 1024-thread block
-    per subject).  There is no backward kernel: a CUDA profile that
-    requires grad, with grad mode on, raises ``NotImplementedError``.
+    block's 227 KB); Qp > 1024 with ``STRIP_MIN_B`` subjects or more runs
+    the strip kernel (the warp kernel over strips of 1024 query rows, A *
+    1024 * 4 bytes of profile at a time, carrying two f32 per subject char
+    between strips in a (B, 2, Dp) f32 workspace allocated here); fewer
+    subjects run the block kernel (one 1024-thread block per subject).
+    There is no backward kernel: a CUDA profile that requires grad, with
+    grad mode on, raises ``NotImplementedError``.
     """
     if profile.dim() != 2 or subjects.dim() != 2:
         raise ValueError(f"profile must be (A, Qp) and subjects (B, Dp), got "
@@ -171,23 +200,31 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
             "backward kernel exists): its scores would carry no gradient")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("profile, subjects and lengths must be contiguous")
-    if Qp <= WARP_QP and A * Qp * 4 > _MAX_SMEM:
-        raise ValueError(f"profile of {A} codes x Qp={Qp} does not fit the "
-                         f"warp kernel's {_MAX_SMEM} bytes of shared memory")
-    if Qp <= WARP_QP and profile.data_ptr() % 16:
+    path = _sw_path(Qp, B)
+    if path != "block" and A * min(Qp, WARP_QP) * 4 > _MAX_SMEM:
+        raise ValueError(f"profile of {A} codes x {min(Qp, WARP_QP)} rows does "
+                         f"not fit the warp kernel's {_MAX_SMEM} bytes of "
+                         f"shared memory")
+    if path != "block" and profile.data_ptr() % 16:
         raise ValueError("the warp kernel reads the profile 16 bytes at a "
                          "time: its start must be 16-byte aligned")
 
     out = torch.empty((B,), dtype=torch.float32, device=profile.device)
+    # the strip kernel's carry between strips: per subject and char, H of
+    # the strip's last row and the max of h_hat + i*ge through it
+    carry = (torch.empty((B, 2, Dp), dtype=torch.float32,
+                         device=profile.device) if path == "strip" else None)
     lib = _lib()
     with torch.cuda.device(profile.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sw_launch(profile.data_ptr(), subjects.data_ptr(),
                             None if lengths is None else lengths.data_ptr(),
-                            out.data_ptr(), A, Qp, q_len, B, Dp,
-                            float(gap_open), float(gap_extend), stream)
+                            out.data_ptr(),
+                            None if carry is None else carry.data_ptr(),
+                            A, Qp, q_len, B, Dp, float(gap_open),
+                            float(gap_extend), stream)
     if err != 0:
         raise RuntimeError(f"sw_launch failed: CUDA error {err} "
                            f"({lib.sw_error_string(err).decode()})")
-    _count_launch()
+    _count_launch(path)
     return out

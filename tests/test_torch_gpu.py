@@ -1,5 +1,6 @@
 """Card-only tests of the PyTorch port: the CUDA Smith-Waterman kernels (the
-warp kernel at every Qp up to 1024, the block kernel above) held against
+warp kernel at every Qp up to 1024, the strip kernel and the block kernel
+above, each on its side of the subject count between them) held against
 their plain PyTorch version on the card, exactly, and the farm search
 launching them once per task or once per chunk of the database; the flash-attention kernels (bf16: wgmma with
 TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernels
@@ -54,20 +55,38 @@ def _codes(rng, n):
     return torch.from_numpy(rng.integers(0, 20, n).astype(np.int32))
 
 
+def _across_strips(query, A=24):
+    """Subjects that align across each boundary of the strip kernel's
+    strips of 1024 query rows: a query segment on the diagonal through it,
+    one with a vertical gap across it, one with padding codes inside."""
+    q = query.cpu().numpy()
+    subjects = []
+    for t in range(sw.WARP_QP, len(q), sw.WARP_QP):
+        seg = q[max(t - 40, 0):t + 40]
+        subjects += [seg.copy(),
+                     np.concatenate([q[max(t - 40, 0):t - 2], q[t + 3:t + 40]]),
+                     np.insert(seg, [5, len(seg) // 2, len(seg) // 2], A + 2)]
+    return subjects
+
+
 # Every warp-kernel instance (Qp = 128 .. 1024), both sides of the dispatch
-# (Qp 1024 and 1152), and the block kernel at Qp 4096.
+# (Qp 1024 and 1152), and the strip kernel with a last strip of 128 rows
+# (1025, 1152, 5147), 512 (1536), 1024 - 96 (4000) and whole strips (2048,
+# 8192 = MAX_QP), given enough subjects to take it.
 @pytest.mark.parametrize("qlen", [1, 129, 144, 257, 385, 513, 641, 769, 897,
-                                  1000, 1024, 1152, 4000])
+                                  1000, 1024, 1025, 1152, 1536, 2048, 4000,
+                                  5147, 8192])
 def test_kernel_equals_plain_on_card(dev, qlen):
     rng = np.random.default_rng(qlen)
-    prof, q_len = ops.build_profile(_codes(rng, qlen).to(dev),
-                                    ops.BLOSUM50.to(dev))
-    lens = [1, 17, 352, 513]
-    batch = torch.full((4, 513), 24, dtype=torch.int32)
-    for i, n in enumerate(lens):
-        batch[i, :n] = _codes(rng, n)
-    batch = batch.to(dev)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    query = _codes(rng, qlen)
+    prof, q_len = ops.build_profile(query.to(dev), ops.BLOSUM50.to(dev))
+    subjects = [_codes(rng, n) for n in (1, 17, 352, 513)] + _across_strips(query)
+    B = len(subjects) if qlen <= sw.WARP_QP else max(len(subjects),
+                                                     sw.STRIP_MIN_B)
+    subjects += [_codes(rng, n) for n in rng.integers(1, 514, B - len(subjects))]
+    assert sw._sw_path(prof.shape[1], B) == (
+        "warp" if qlen <= sw.WARP_QP else "strip")
+    batch, lengths = sw.pack_subjects(subjects, 24, dev)
     for go, ge in GAPS:
         got = sw.sw_batch(prof, batch, lengths, gap_open=go, gap_extend=ge,
                           q_len=q_len)
@@ -75,16 +94,23 @@ def test_kernel_equals_plain_on_card(dev, qlen):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("B", [1, 7, 9, 33])   # not multiples of 4 or 8 warps
-@pytest.mark.parametrize("qlen", [1000, 1152])
+# Not multiples of 4 or 8 warps, and both sides of the strip kernel's
+# threshold where there is one.
+EDGE_BS = sorted({1, 7, 9, 33} | ({sw.STRIP_MIN_B - 1, sw.STRIP_MIN_B}
+                                  if sw.STRIP_MIN_B > 1 else set()))
+
+
+@pytest.mark.parametrize("B", EDGE_BS)
+@pytest.mark.parametrize("qlen", [1000, 1152, 5147])
 def test_kernel_batch_edges_on_card(dev, B, qlen):
     """Tail warps, empty subjects, interior codes >= A, negative codes (row
-    0, as the reference clips them), junk past the lengths, and a profile
-    whose padded query rows score +7, so that they would win if the kernel
-    let them into the best score."""
+    0, as the reference clips them), junk past the lengths, subjects that
+    align across the strips' boundaries, and a profile whose padded query
+    rows score +7, so that they would win if the kernel let them into the
+    best score."""
     rng = np.random.default_rng(B * qlen)
-    prof, q_len = ops.build_profile(_codes(rng, qlen).to(dev),
-                                    ops.BLOSUM50.to(dev))
+    query = _codes(rng, qlen)
+    prof, q_len = ops.build_profile(query.to(dev), ops.BLOSUM50.to(dev))
     prof[:, q_len:] = 7.0
     A = prof.shape[0]
     lens = rng.integers(0, 400, B)
@@ -93,6 +119,8 @@ def test_kernel_batch_edges_on_card(dev, B, qlen):
     if B > 2:
         subjects[1][::3] = A + 5
         subjects[2][1::4] = -3
+        across = _across_strips(query)[:B - 3]
+        subjects[3:3 + len(across)] = across
     subj, lengths = sw.pack_subjects(subjects, A, dev)
     subj = torch.cat([subj, torch.full((B, 9), 3, dtype=torch.int32,
                                        device=dev)], 1)   # junk past lengths
@@ -102,6 +130,40 @@ def test_kernel_batch_edges_on_card(dev, B, qlen):
         live = torch.arange(subj.shape[1], device=dev) < lengths[:, None]
         want = sw.sw_plain(prof, torch.where(live, subj, A), go, ge, q_len)
         assert torch.equal(got, want), (go, ge, got.tolist(), want.tolist())
+
+
+def test_strip_launches_counted_on_card(dev):
+    """Every long-query sw_batch call is one launch, tallied by the path
+    _sw_path names, and the card runs that kernel: sw_warp_kernel<32, LL>
+    on the strip path (LL the last strip's rows / 32), sw_kernel<L> on the
+    block path, sw_warp_kernel<L> up to 1024 rows."""
+    rng = np.random.default_rng(2)
+    cases = [(1000, 5, "warp", "sw_warp_kernel<32>"),
+             (1500, max(sw.STRIP_MIN_B, 5), "strip", "sw_warp_kernel<32, 16>"),
+             (5147, max(sw.STRIP_MIN_B, 5), "strip", "sw_warp_kernel<32, 4>")]
+    if sw.STRIP_MIN_B > 1:
+        cases.append((1500, sw.STRIP_MIN_B - 1, "block", "sw_kernel<2>"))
+    for qlen, B, path, kernel in cases:
+        prof, q_len = ops.build_profile(_codes(rng, qlen).to(dev),
+                                        ops.BLOSUM50.to(dev))
+        subj, lengths = sw.pack_subjects(
+            [_codes(rng, n) for n in rng.integers(1, 300, B)], 24, dev)
+        assert sw._sw_path(prof.shape[1], B) == path
+        before, by_path = sw.launch_count(), sw.launch_counts()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof_run:
+            for _ in range(3):
+                sw.sw_batch(prof, subj, lengths, gap_open=10.0,
+                            gap_extend=2.0, q_len=q_len)
+            torch.cuda.synchronize()
+        assert sw.launch_count() - before == 3
+        after = sw.launch_counts()
+        assert {p: after[p] - by_path[p] for p in sw.PATHS} == {
+            p: 3 if p == path else 0 for p in sw.PATHS}
+        names = [e.name for e in prof_run.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "sw_" in e.name]
+        assert len(names) == 3 and all(kernel + "(" in n for n in names), names
 
 
 def test_wrapper_refuses_non_contiguous_on_card(dev):

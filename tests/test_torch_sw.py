@@ -17,11 +17,12 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import FnNode, TaskFarm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import smith_waterman as sw
-from repro_torch.kernels.smith_waterman import (MAX_QP, pack_subjects,
+from repro_torch.kernels.smith_waterman import (MAX_QP, NEG, pack_subjects,
                                                 sw_batch, sw_plain)
 
 CPU = "cpu"
@@ -242,20 +243,118 @@ def test_encode_seq_defaults_to_the_card(monkeypatch):
 
 
 def test_launch_count_loses_no_update_across_threads():
-    """Farm workers count launches from several threads at once."""
+    """Farm workers count launches from several threads at once, the total
+    and the tally by path alike."""
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         sw.reset_launch_count()
-        threads = [threading.Thread(target=lambda: [sw._count_launch()
-                                                    for _ in range(2000)])
-                   for _ in range(16)]
+        threads = [threading.Thread(target=lambda p=p: [sw._count_launch(p)
+                                                        for _ in range(2000)])
+                   for p in sw.PATHS * 6][:16]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads)
         assert sw.launch_count() == 16 * 2000
+        assert sw.launch_counts() == {"warp": 6 * 2000, "strip": 5 * 2000,
+                                      "block": 5 * 2000}
     finally:
         sys.setswitchinterval(switch)
         sw.reset_launch_count()
+    assert sw.launch_counts() == dict.fromkeys(sw.PATHS, 0)
+
+
+@pytest.mark.parametrize("Qp,B,path", [
+    (128, 1, "warp"), (1024, 1, "warp"), (1024, 100_000, "warp"),
+    (1152, 1, "block"), (1152, sw.STRIP_MIN_B - 1, "block"),
+    (1152, sw.STRIP_MIN_B, "strip"), (1152, 4096, "strip"),
+    (8192, sw.STRIP_MIN_B - 1, "block"), (8192, sw.STRIP_MIN_B, "strip"),
+])
+def test_sw_path_rule(Qp, B, path):
+    """Up to 1024 rows the warp kernel at every B; above, the strip kernel
+    from STRIP_MIN_B subjects a launch (one more than the H100's 132 SMs),
+    the block kernel below."""
+    assert sw.STRIP_MIN_B == 133
+    assert sw._sw_path(Qp, B) == path
+
+
+def _sw_strips(profile, subj, go, ge, q_len, strip):
+    """``sw_plain`` cut into strips of ``strip`` query rows, top first, as
+    the strip kernel runs it: each strip scores every subject char, taking
+    from the strip above, per processed char, H of its last row (the left
+    neighbour of the strip's first row, one processed char later) and the
+    max of ``h_hat + i*ge`` over every row above (the seed of the
+    exclusive prefix-max)."""
+    A, Qp = profile.shape
+    B, D = subj.shape
+    f32 = torch.float32
+    go_t, ge_t = torch.tensor(go, dtype=f32), torch.tensor(ge, dtype=f32)
+    zero = torch.zeros((), dtype=f32)
+    idx = torch.arange(Qp, dtype=f32)
+    idx_ge, idx_m1_ge = idx * ge_t, (idx - 1.0) * ge_t
+    carry_h = torch.zeros((B, D), dtype=f32)
+    carry_p = torch.full((B, D), NEG, dtype=f32)
+    best = torch.zeros((B,), dtype=f32)
+    for r0 in range(0, Qp, strip):
+        rows = slice(r0, min(r0 + strip, Qp))   # a ragged last strip
+        qmask = idx[rows] < q_len
+        h = torch.zeros((B, rows.stop - r0), dtype=f32)
+        e = torch.full((B, rows.stop - r0), NEG, dtype=f32)
+        hl = torch.zeros((B,), dtype=f32)   # H above, last processed char
+        out_h, out_p = carry_h.clone(), carry_p.clone()
+        for j in range(D):
+            c = subj[:, j].long()
+            valid = c < A
+            s = profile[c.clamp(0, A - 1)][:, rows]
+            e_new = torch.maximum(h - go_t, e - ge_t)
+            h_shift = torch.cat([hl[:, None], h[:, :-1]], dim=1)
+            h_hat = torch.maximum(torch.maximum(h_shift + s, e_new), zero)
+            h_hat = torch.where(qmask, h_hat, zero)
+            x = h_hat + idx_ge[rows]
+            p = torch.cummax(torch.cat([carry_p[:, j:j + 1], x[:, :-1]], dim=1),
+                             dim=1).values
+            h_new = torch.where(qmask, torch.maximum(
+                h_hat, p - go_t - idx_m1_ge[rows]), zero)
+            v = valid[:, None]
+            h = torch.where(v, h_new, h)
+            e = torch.where(v, e_new, e)
+            best = torch.where(valid, torch.maximum(best, h_new.amax(dim=1)),
+                               best)
+            hl = torch.where(valid, carry_h[:, j], hl)
+            out_h[:, j] = h_new[:, -1]
+            out_p[:, j] = torch.maximum(p[:, -1], x[:, -1])
+        carry_h, carry_p = out_h, out_p
+    return best
+
+
+def _strip_subjects(rng, query, strip, n_random, A=24):
+    """Random subjects with interior padding codes and negative codes, and
+    query segments across each strip boundary: one on the diagonal, one
+    with a vertical gap across the boundary, one with padding inside."""
+    subjects = [_codes(rng, int(n)) for n in rng.integers(1, 120, n_random)]
+    subjects[0][::3] = A + 4
+    subjects[1][1::5] = -2
+    for t in range(strip, len(query), strip):
+        seg = query[max(t - 40, 0):t + 40]
+        gap = np.concatenate([query[max(t - 40, 0):t - 2], query[t + 3:t + 40]])
+        pad = np.insert(seg, [5, len(seg) // 2, len(seg) // 2], A + 2)
+        subjects += [seg.copy(), gap, pad.astype(np.int32)]
+    return subjects
+
+
+@pytest.mark.parametrize("qlen,strip", [(129, 128), (300, 128), (1025, 256),
+                                        (1800, 256), (3000, 256)])
+def test_strip_carry_equals_sw_plain(qlen, strip):
+    """The strip decomposition (the strip kernel's carry arithmetic) is
+    bit for bit ``sw_plain``, in all three gap settings of the card tests."""
+    rng = np.random.default_rng(qlen)
+    query = _codes(rng, qlen)
+    prof, q_len = ops.build_profile(torch.from_numpy(query))
+    subj, _ = pack_subjects(_strip_subjects(rng, query, strip, 4), 24, CPU)
+    for go, ge in GAPS + [(10.3, 2.1)]:
+        want = sw_plain(prof, subj, go, ge, q_len)
+        got = _sw_strips(prof, subj, go, ge, q_len, strip)
+        assert torch.equal(got, want), (go, ge, got.tolist(), want.tolist())
+    assert want.max() > 100   # the boundary segments align across strips
