@@ -1236,6 +1236,99 @@ def ssd_bwd_kernel_flops(b, T, H, P, N, l):
     return 2 * b * nc * (H * (2 * P * pairs + 5 * l * N * P) + 2 * N * pairs)
 
 
+FA224 = (8, 32, 4096, 224)    # Zamba2-7B's training attention: B, H, S = T, D
+FA224_FWD = "forward (with statistics)"
+
+
+def fa224_timing(dev, fa):
+    """The D = 224 kernels (Zamba2-7B's shared attention; scale (D/2)^-0.5,
+    causal, bf16) at the training shape.  First one sequence at S = T =
+    4096 with all 32 heads against the plain versions over the kernel's kv
+    tiles: the statistics-writing forward's output (FA_TOL) and statistics
+    (1e-5 + 1e-5·|plain|), the backward's dq, dk, dv (FA_TOL).  Then each
+    timed at the whole shape against its bound (operations: 2 and 5
+    products of 2·D FLOPs per causal pair at 989 TFLOP/s; bytes: q, k, v,
+    o, and the backward's do and gradients, once each), the plain version
+    (a sequence at a time) and the library's
+    ``scaled_dot_product_attention(is_causal=True, scale=(D/2)^-0.5)``,
+    forward, and backward through autograd."""
+    B, H, S, D = FA224
+    scale = (D / 2) ** -0.5
+    kw = dict(causal=True, scale=scale)
+    tol, kv = FA_TOL[torch.bfloat16], fa.kv_tile(torch.bfloat16, D)
+    g = torch.Generator(device=dev).manual_seed(224)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    one = [t[:1] for t in (q, k, v, do)]
+    o1, st1 = fa.fa_forward_with_stats(*one[:3], **kw)
+    err_f, ok_f = within(o1, fa.fa_plain(*one[:3], kv_tile=kv, **kw), tol)
+    err_s, ok_s = within(st1, fa.fa_stats_plain(*one[:2], kv_tile=kv, **kw), 1e-5)
+    got = fa.fa_backward(*one[:3], o1, one[3], stats=st1, **kw)
+    want = fa.fa_backward_plain(*one[:3], o1, one[3], kv_tile=kv, stats=st1, **kw)
+    torch.cuda.synchronize()
+    errs = [within(a, b, tol) for a, b in zip(got, want)]
+    check(ok_f and ok_s and all(ok for _, ok in errs),
+          f"FA D=224 != plain at (1, {H}, {S}, {D}): forward {err_f}, statistics "
+          f"{err_s}, backward {[e for e, _ in errs]}")
+    del o1, st1, got, want
+    o, stats = fa.fa_forward_with_stats(q, k, v, **kw)
+    per = H * S                                  # statistics rows a sequence
+    fwd = cuda_ms(lambda: fa.fa_forward_with_stats(q, k, v, **kw), iters=10, warmup=2)
+    bwd = cuda_ms(lambda: fa.fa_backward(q, k, v, o, do, stats=stats, **kw),
+                  iters=10, warmup=2)
+    plain_fwd = cuda_ms(lambda: [fa.fa_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                             kv_tile=kv, **kw) for i in range(B)],
+                        iters=2, warmup=1)
+    plain_bwd = cuda_ms(lambda: [fa.fa_backward_plain(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1], do[i:i + 1], kv_tile=kv,
+        stats=stats[:, i * per:(i + 1) * per], **kw) for i in range(B)],
+        iters=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_name = "scaled_dot_product_attention(is_causal=True, scale=(D/2)^-0.5)"
+    lib_fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
+                      iters=10, warmup=2)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_bwd, reps = 0.0, 5
+    for i in range(reps + 1):
+        out = sdpa(*leaves, is_causal=True, scale=scale)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.backward(do)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:                          # the first is a warm-up
+            lib_bwd += start.elapsed_time(stop) / reps
+        for t in leaves:
+            t.grad = None
+    del out, leaves
+    pairs = fa_pairs(S, S, True, None)
+    shape = f"B={B} H={H} Hkv={H} S={S} T={S} D={D} causal scale (D/2)^-0.5 bf16"
+    rows = {}
+    for name, ms, plain, lib, products, tensors, err in (
+            (FA224_FWD, fwd, plain_fwd, lib_fwd, 2, 4, err_f),
+            ("backward", bwd, plain_bwd, lib_bwd, 5, 8, max(e for e, _ in errs))):
+        flop = products * 2 * B * H * D * pairs
+        t_ops, t_bytes = flop / PEAK_BF16, tensors * B * H * S * D * 2 / PEAK_BYTES
+        rows[name] = dict(
+            path=f"zamba2-7b train, {name}", shape=shape, ms=ms, plain_ms=plain,
+            library_ms=lib, library=lib_name + (" backward through autograd"
+                                                if products == 5 else ""),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes", err=err)
+        print(f"timing fa224 {name} {shape}: kernel {ms:.4f} ms, bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({flop / 1e9:.2f} GFLOP at 989 "
+              f"TFLOP/s; bytes {t_bytes * 1e3:.4f} ms), "
+              f"{flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{rows[name]['bound_ms'] / ms:.4f} of the bound; plain (a sequence "
+              f"at a time) {plain:.4f} ms; library {rows[name]['library']} "
+              f"{lib:.4f} ms; |err| vs plain at (1, {H}, {S}, {D}) {err:.3e}"
+              + (f", statistics {err_s:.3e}" if products == 2 else ""), flush=True)
+    del q, k, v, do, o, stats
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_model_timing(dev, fa, ssd):
     """FA and SSD at the main path's shapes: kernel, plain, bound, library."""
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -4575,6 +4668,7 @@ def main():
     model_worst = phase_model_kernels(dev, fa, ssd)
     model_launches, _ = phase_model_path(dev)
     model_rows = phase_model_timing(dev, fa, ssd)
+    model_rows["fa224"] = fa224_timing(dev, fa)
     families = phase_families(dev)
     training = phase_training(dev, fa, ssd)
     keyed_launches, keyed_ctx = phase_keyed(dev, sw, ops, core, queries,
@@ -4649,7 +4743,8 @@ def main():
                     "forward_with_stats_err"],
                 shapes=[{k: x[k] for k in ("path", "shape", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
-                                           "library")} for x in shapes])
+                                           "library")}
+                        for x in shapes + [model_rows["fa224"][FA224_FWD]]])
         else:
             by_path = {"zamba2 prefill": model_launches["ssd"],
                        "zamba2 train": training["zamba2"]["counts"]["ssd"],
@@ -4696,6 +4791,10 @@ def main():
         "tflops_7_products": r["tflops_7"],
         "forward_ms": r["forward_ms"],
         "forward_with_stats_ms": r["forward_with_stats_ms"],
+        "shapes": [{k: x[k] for k in ("path", "shape", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "library")}
+                   for x in (model_rows["fa224"]["backward"],)],
     })
     r = training["ssd_bwd_row"]
     kernels.append({

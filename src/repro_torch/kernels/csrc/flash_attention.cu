@@ -85,7 +85,16 @@
 //     max and sum reduce over the 16 lanes of a row by xor shuffles; P goes
 //     through shared memory; each thread owns 4 rows x D/16 columns of acc.
 //
-// D is a template parameter, any multiple of 16 up to 128, in both.
+// D is a template parameter, any multiple of 16 up to 128, in both; and
+// D = 224 (Zamba2-7B's shared attention, 32 heads over 2 x 3584 inputs) in
+// the bfloat16 kernel only.  There the kv tiles are 64 rows (`kv_rows`):
+// S = Q·Kᵀ is m64n64k16 (32 scores a thread), P is 16 registers, and the
+// warpgroup's 64 x 224 f32 output (112 registers a thread) takes P·V as two
+// m64n112k16 halves; Q (56 KiB) and a 3-stage ring of 64-row K and V tiles
+// (28 KiB each) fill 224 KiB of shared memory.  The skip rule then works on
+// 64-key tiles, and the backward is told so (its `kv_tile`).  A block there
+// has a producer warpgroup, which gives its registers to the consumers
+// (`block_threads`).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -263,14 +272,28 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // --------------------------------------------------------------- bfloat16
 constexpr int WBQ = 128;            // q rows per block: two warpgroups of 64
-constexpr int WBK = 128;            // kv rows per tile
+constexpr int WBK = 128;            // kv rows per tile up to D = 128
 constexpr int STAGES = 3;           // K/V ring depth (224 KiB of shared memory at D = 128)
 constexpr int CONSUMERS = 256;      // two warpgroups
 constexpr int WTHREADS = CONSUMERS + 32;   // + the producer warp
 constexpr float NEG2 = NEG * LOG2E; // a masked score in the base-2 domain
 
+// kv rows per tile: 128 up to D = 128; 64 above, so that a warpgroup's
+// scores (32 f32 a thread) and P (16 registers) sit beside its D/2 f32
+// accumulators (112 at D = 224) and the 3-stage ring fits shared memory
+// (Q 56 KiB + 3 x 2 x 28 KiB at D = 224).  The skip rule's kv tile, and
+// so the backward's `kv_tile`, is this size.
+template <int D> __host__ __device__ constexpr int kv_rows() { return D > 128 ? 64 : WBK; }
+// Threads a block: from D = 224 the producer is a whole warpgroup (one warp
+// of it loads), so that it can hand its registers to the consumers with
+// setmaxnreg (24 and 240 a thread, from 168): 112 f32 accumulators, 32
+// scores and 16 P registers a thread spill at 168.
+template <int D> __host__ __device__ constexpr int block_threads() {
+  return D > 128 ? CONSUMERS + 128 : WTHREADS;
+}
+
 template <int D, bool STATS>
-__global__ void __launch_bounds__(WTHREADS, 1)
+__global__ void __launch_bounds__(block_threads<D>(), 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -278,15 +301,16 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 long long so_r, float* __restrict__ stats, int H, int group,
                 int S, int Tk, float scale_log2, int causal, int window,
                 int q_offset) {
-  constexpr uint32_t TILE = D * WBQ * 2;      // bytes of one 128-row tile
+  constexpr int BK = kv_rows<D>();
+  constexpr uint32_t TILE = D * WBQ * 2;      // bytes of the 128-row Q tile
+  constexpr uint32_t KTILE = D * BK * 2;      // bytes of one K or V tile
   constexpr int NCH = D / CHUNK;
-  static_assert(WBQ == WBK, "one tile size for Q, K and V");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + TILE;                 // + stage * TILE
-  const uint32_t sV = sK + STAGES * TILE;
-  const uint32_t q_full = sV + STAGES * TILE;    // then k_full, v_full, empty
+  const uint32_t sK = sQ + TILE;                 // + stage * KTILE
+  const uint32_t sV = sK + STAGES * KTILE;
+  const uint32_t q_full = sV + STAGES * KTILE;   // then k_full, v_full, empty
   auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
   auto v_full = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
   auto empty = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
@@ -297,10 +321,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // the kv tiles some row of this block can see
   const int qlo = q0 + q_offset, qhi = q0 + WBQ - 1 + q_offset;
-  const int nk = (Tk + WBK - 1) / WBK;
-  const int kt_end = causal ? min(nk, qhi / WBK + 1) : nk;
+  const int nk = (Tk + BK - 1) / BK;
+  const int kt_end = causal ? min(nk, qhi / BK + 1) : nk;
   const int first = qlo - window + 1;           // first key row qlo may see
-  const int kt_begin = (window > 0 && first > 0) ? first / WBK : 0;
+  const int kt_begin = (window > 0 && first > 0) ? first / BK : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -314,6 +338,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x >= CONSUMERS) {                // ---- producer warp ----
+    if constexpr (block_threads<D>() > WTHREADS) setmaxnreg_dec<24>();
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(q_full, TILE);
       tma_tile<D>(sQ, &tq, q_full, q0, h, b, WBQ);
@@ -321,16 +346,17 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = i % STAGES;
         const uint32_t ph = (i / STAGES) & 1;
         mbar_wait(empty(s), ph ^ 1);             // both warpgroups are done
-        mbar_expect_tx(k_full(s), TILE);
-        tma_tile<D>(sK + s * TILE, &tk, k_full(s), kt * WBK, hk, b, WBK);
-        mbar_expect_tx(v_full(s), TILE);
-        tma_tile<D>(sV + s * TILE, &tv, v_full(s), kt * WBK, hk, b, WBK);
+        mbar_expect_tx(k_full(s), KTILE);
+        tma_tile<D>(sK + s * KTILE, &tk, k_full(s), kt * BK, hk, b, BK);
+        mbar_expect_tx(v_full(s), KTILE);
+        tma_tile<D>(sV + s * KTILE, &tv, v_full(s), kt * BK, hk, b, BK);
       }
     }
     return;
   }
 
   // ---- consumer warpgroups: 64 q rows each ----
+  if constexpr (block_threads<D>() > WTHREADS) setmaxnreg_inc<240>();
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   const int lane = t % 32, g = lane / 4, c = lane % 4;
   const int row0 = q0 + wg * 64 + (t / 32) * 16 + g;   // this thread's rows:
@@ -347,28 +373,33 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
     const int s = i % STAGES;
     const uint32_t ph = (i / STAGES) & 1;
-    const int k0 = kt * WBK;
+    const int k0 = kt * BK;
     const bool live = (!causal || k0 <= whi) &&
-                      (window <= 0 || k0 + WBK - 1 > wlo - window);
+                      (window <= 0 || k0 + BK - 1 > wlo - window);
     mbar_wait(k_full(s), ph);
     if (live) {
-      float sc[64];
-      const uint64_t dk = smem_desc(sK + s * TILE, 16, 256);
+      float sc[BK / 2];
+      const uint64_t dk = smem_desc(sK + s * KTILE, 16, 256);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < NCH; ++kk)
-        wgmma_qk(sc, dq + ((kk * WBQ * 32) >> 4), dk + ((kk * WBK * 32) >> 4),
-                 kk > 0);
+      for (int kk = 0; kk < NCH; ++kk) {
+        if constexpr (BK == 128)
+          wgmma_qk(sc, dq + ((kk * WBQ * 32) >> 4), dk + ((kk * BK * 32) >> 4),
+                   kk > 0);
+        else
+          wgmma_ss64(sc, dq + ((kk * WBQ * 32) >> 4), dk + ((kk * BK * 32) >> 4),
+                     kk > 0);
+      }
       wgmma_commit();
       wgmma_wait0();
       fence_regs(sc);
 
       // sc[j]: row row0 + 8·((j>>1)&1), key k0 + (j>>2)·8 + 2c + (j&1)
-      const bool edge = k0 + WBK > Tk || (causal && k0 + WBK - 1 > wlo) ||
+      const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > wlo) ||
                         (window > 0 && k0 <= whi - window);
       if (edge) {
 #pragma unroll
-        for (int j = 0; j < 64; ++j) {
+        for (int j = 0; j < BK / 2; ++j) {
           const int kpos = k0 + (j >> 2) * 8 + 2 * c + (j & 1);
           const int qp = (j & 2) ? qp1 : qp0;
           bool ok = kpos < Tk;
@@ -378,11 +409,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 64; ++j) sc[j] *= scale_log2;
+        for (int j = 0; j < BK / 2; ++j) sc[j] *= scale_log2;
       }
       float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < BK / 2; ++j) {
         if (j & 2) mx1 = fmaxf(mx1, sc[j]);
         else mx0 = fmaxf(mx0, sc[j]);
       }
@@ -394,10 +425,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
-      uint32_t pf[32];   // P in bf16: the A fragments of the P·V wgmma
+      uint32_t pf[BK / 4];   // P in bf16: the A fragments of the P·V wgmma
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 64; j += 2) {
+      for (int j = 0; j < BK / 2; j += 2) {
         const float mm = (j & 2) ? mx1 : mx0;
         const float p0 = ex2(sc[j] - mm), p1 = ex2(sc[j + 1] - mm);
         if (j & 2) s1 += p0 + p1;
@@ -409,12 +440,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? a1 : a0;
 
-      const uint64_t dv = smem_desc(sV + s * TILE, WBK * 32, 256);
+      const uint64_t dv = smem_desc(sV + s * KTILE, BK * 32, 256);
       mbar_wait(v_full(s), ph);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < WBK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
         WgmmaRS<D>::run(acc, &pf[4 * kk], dv + ((kk * 16 * 32) >> 4));
       wgmma_commit();
       wgmma_wait0();
@@ -466,17 +497,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   static const EncodeTiledFn encode =
       reinterpret_cast<EncodeTiledFn>(cu_entry_point("cuTensorMapEncodeTiled"));
   if (!encode) return (int)cudaErrorSymbolNotFound;
+  constexpr int BK = kv_rows<D>();
   CUtensorMap tq, tk, tv;
   CUresult r = make_map(encode, &tq, q, D, S, H, B, 2 * st.q[2], 2 * st.q[1],
                         2 * st.q[0], WBQ);
   if (r == CUDA_SUCCESS)
     r = make_map(encode, &tk, k, D, Tk, Hkv, B, 2 * st.k[2], 2 * st.k[1],
-                 2 * st.k[0], WBK);
+                 2 * st.k[0], BK);
   if (r == CUDA_SUCCESS)
     r = make_map(encode, &tv, v, D, Tk, Hkv, B, 2 * st.v[2], 2 * st.v[1],
-                 2 * st.v[0], WBK);
+                 2 * st.v[0], BK);
   if (r != CUDA_SUCCESS) return CU_ERR + (int)r;
-  const size_t smem = 1024 + (size_t)D * WBQ * 2 * (1 + 2 * STAGES) +
+  const size_t smem = 1024 + (size_t)D * 2 * (WBQ + 2 * STAGES * BK) +
                       8 * (1 + 3 * STAGES);
   // Without a stats buffer the kernel is compiled without the stats write.
   auto kernel = stats ? fa_wgmma_kernel<D, true> : fa_wgmma_kernel<D, false>;
@@ -484,7 +516,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (S + WBQ - 1) / WBQ);
-  kernel<<<grid, WTHREADS, smem, stream>>>(
+  constexpr int threads = block_threads<D>();
+  kernel<<<grid, threads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.o[0], st.o[1], st.o[2],
       stats, H, H / Hkv, S, Tk, scale * LOG2E, causal, window, q_offset);
   return (int)cudaGetLastError();
@@ -494,11 +527,12 @@ template <bool BF16, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* stats,
            const Strides& st, int B, int H, int Hkv, int S, int Tk, float scale,
            int causal, int window, int q_offset, cudaStream_t s) {
-  if (BF16)
+  if constexpr (BF16)
     return launch_bf16<D>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale,
                           causal, window, q_offset, s);
-  return (int)launch_f32<D>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal,
-                            window, q_offset, s);
+  else
+    return (int)launch_f32<D>(q, k, v, o, st, B, H, Hkv, S, Tk, scale, causal,
+                              window, q_offset, s);
 }
 
 template <bool BF16>
@@ -515,6 +549,11 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
     case 96: return launch<BF16, 96>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
     case 112: return launch<BF16, 112>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
     case 128: return launch<BF16, 128>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+    case 224:   // Zamba2-7B's shared attention: the bfloat16 kernel only
+      if constexpr (BF16)
+        return launch<BF16, 224>(q, k, v, o, stats, st, B, H, Hkv, S, Tk, scale, causal, window, q_offset, s);
+      else
+        return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }

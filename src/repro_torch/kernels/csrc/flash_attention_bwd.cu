@@ -83,7 +83,9 @@
 //   each a 4 x 4 micro-tile of the 64 x 64 score tile, operands converted
 //   to f32 in shared memory with rows of D + 1 floats.
 //
-// D is a template parameter, any multiple of 16 up to 128.
+// D is a template parameter, any multiple of 16 up to 128; and D = 224
+// (Zamba2-7B's shared attention) in bfloat16 only, with the smaller tiles
+// and the split dK/dV block that `kv_rows` and `dkdv_split` describe.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -511,32 +513,26 @@ static_assert(2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536, "registers
 static_assert(WQ == BQ, "the skip rule's q groups are the warpgroups' rows");
 
 // The dQ kernel's K/V ring: 3 stages, 2 at D = 128 (Q, dO and three stages
-// of K and V would take 256 KiB of shared memory there).
+// of K and V would take 256 KiB of shared memory there) and at D = 224.
 template <int D> __host__ __device__ constexpr int dq_stages() { return D > 112 ? 2 : 3; }
 
-template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
+// From D = 224 (Zamba2-7B's shared attention) the tiles shrink so that the
+// f32 accumulators fit the registers and the tiles shared memory:
+//  * kv_rows: the dQ kernel's K/V tiles, and the forward's kv tile (its
+//    `kv_rows`, hence `kv_tile`), 64 rows: S and dP are m64n64k16 (32
+//    values a thread each), dS 16 registers, beside 112 of dQ;
+//  * the dK/dV block takes 64 keys and splits the work between its
+//    warpgroups (`dkdv_split`): warpgroup 0 accumulates dV, warpgroup 1
+//    dK, each 112 registers a thread, where one warpgroup holding both
+//    would need 224 for them alone; both form Sᵀ = K·Qᵀ (one product more
+//    than a single warpgroup runs), warpgroup 1 also dPᵀ; its Q/dO ring
+//    has 2 stages (K, V and 3 stages of 64-row Q and dO tiles would exceed
+//    227 KiB).
+template <int D> __host__ __device__ constexpr int kv_rows() { return D > 128 ? 64 : WK; }
+template <int D> __host__ __device__ constexpr bool dkdv_split() { return D > 128; }
+template <int D> __host__ __device__ constexpr int dkdv_keys() { return dkdv_split<D>() ? 64 : WK; }
+template <int D> __host__ __device__ constexpr int dkdv_stages() { return dkdv_split<D>() ? 2 : STAGES; }
 
-// Sᵀ (64 x 64) += A (64 x 16) · Bᵀ (16 x 64): m64n64k16, both from shared
-// memory, K-major: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (dK/dV).
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
 
 // ------------------------------------------------------------ 1. Δ
 // Δ = rowsum(dO ∘ O) in f32 over the B·H·S rows, four lanes a row, 16-byte
@@ -574,6 +570,121 @@ fa_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
   if (part == 0 && row < rows) delta[row] = sum;
 }
 
+// The dK/dV consumers of a split block (`dkdv_split`): 64 keys, warpgroup 0
+// (DK false) accumulating dV += Pᵀ·dO and writing dV, warpgroup 1 (DK true)
+// dK += dSᵀ·Q and writing dK·D^-0.5, over the same ring of q tiles; each
+// releases every stage, as the unsplit consumers do.
+template <int D, bool DK>
+__device__ __forceinline__ void dkdv_split_consumer(
+    const Problem& p, const Strides& st, uint32_t sK, uint32_t sV, uint32_t sQ,
+    uint32_t sG, uint32_t kv_full, const float* stat_smem, int b, int hk,
+    int k0, int nq, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv) {
+  constexpr int KB = dkdv_keys<D>();
+  constexpr int NST = dkdv_stages<D>();
+  constexpr uint32_t QTILE = D * WQ * 2;
+  constexpr int NCH = D / CHUNK;
+  static_assert(KB == 64, "a split block's 64 keys are each warpgroup's");
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + NST + s); };
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32, g = lane / 4, c = lane % 4;
+  const int kp0 = k0 + (t / 32) * 16 + g;       // this thread's keys:
+  const int kp1 = kp0 + 8;                      // kp0 and kp0 + 8
+  const float scale_log2 = p.scale * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+
+  const uint64_t dka = smem_desc(sK, 16, 256);   // A of Sᵀ
+  const uint64_t dva = smem_desc(sV, 16, 256);   // A of dPᵀ
+  mbar_wait(kv_full, 0);
+  int i = 0;
+  for (int h = hk * p.group; h < (hk + 1) * p.group; ++h) {
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * WQ;
+      if (!visited(p, q0, k0)) continue;
+      const int s = i % NST;
+      const uint32_t ph = (i / NST) & 1;
+      ++i;
+      mbar_wait(full(s), ph);
+      const uint32_t q_s = sQ + s * QTILE, g_s = sG + s * QTILE;
+      float sc[32], dp[DK ? 32 : 1];
+      {
+        const uint64_t dqb = smem_desc(q_s, 16, 256), dgb = smem_desc(g_s, 16, 256);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NCH; ++kk)
+          wgmma_ss64(sc, dka + ((kk * KB * 32) >> 4), dqb + ((kk * WQ * 32) >> 4), kk > 0);
+        if constexpr (DK) {
+#pragma unroll
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_ss64(dp, dva + ((kk * KB * 32) >> 4), dgb + ((kk * WQ * 32) >> 4), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sc);
+        fence_regs(dp);
+      }
+
+      // sc[j], dp[j]: key kp0 + 8·((j>>1)&1), q row q0 + (j>>2)·8 + 2c + (j&1)
+      const float* ss = stat_smem + s * 3 * WQ;
+      const int glo = q0 + p.q_offset;           // the tile's first q position
+      const bool edge = k0 + KB - 1 >= p.Tk || (p.causal && k0 + KB - 1 > glo) ||
+                        (p.window > 0 && k0 <= glo + WQ - 1 - p.window);
+      uint32_t af[16];   // Pᵀ (dV) or dSᵀ (dK) in bf16: the A fragments
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int kp = (j & 2) ? kp1 : kp0;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = (j >> 2) * 8 + 2 * c + e;
+          float x = sc[j + e] * scale_log2;
+          bool ok = true;
+          if (edge) {
+            ok = unmasked(p, q0 + r + p.q_offset, kp);
+            if (!ok) x = NEG2;
+          }
+          const float pr = ex2(x - ss[r]) * ss[WQ + r];
+          if constexpr (DK)
+            v[e] = ok ? pr * (dp[j + e] - ss[2 * WQ + r]) : 0.f;
+          else
+            v[e] = pr;
+        }
+        af[j / 2] = pack_bf16(v[0], v[1]);
+      }
+
+      // dV += Pᵀ·dO or dK += dSᵀ·Q: dO or Q as B, MN-major (the transpose)
+      const uint64_t dbt = smem_desc(DK ? q_s : g_s, WQ * 32, 256);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WQ / 16; ++kk)
+        WgmmaRS<D>::run(acc, &af[4 * kk], dbt + ((kk * 16 * 32) >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      mbar_arrive(empty(s));
+    }
+  }
+
+  const long long* so = DK ? st.dk : st.dv;
+  __nv_bfloat16* ob = (DK ? dk : dv) + b * so[0] + hk * so[1];
+  const float mul = DK ? p.scale : 1.f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * c;
+    if (kp0 < p.Tk)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)kp0 * so[2] + col) =
+          __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (kp1 < p.Tk)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)kp1 * so[2] + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
 // ------------------------------------------------------------ 2. dK and dV
 // stats: the forward's two planes (m in base 2, 1/l), row (b·H + h)·S + s;
 // delta: Δ, same rows.  Grid (B·Hkv, key tiles of WK), WTHREADS threads.
@@ -587,7 +698,9 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, Strides st, Problem p) {
-  constexpr uint32_t KTILE = D * WK * 2;       // bytes of a 128-row K or V tile
+  constexpr int KB = dkdv_keys<D>();           // keys per block
+  constexpr int NST = dkdv_stages<D>();
+  constexpr uint32_t KTILE = D * KB * 2;       // bytes of the block's K or V tile
   constexpr uint32_t QTILE = D * WQ * 2;       // bytes of a 64-row Q or dO tile
   constexpr int NCH = D / CHUNK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -595,22 +708,22 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sK = base, sV = sK + KTILE;
   const uint32_t sQ = sV + KTILE;                 // + stage * QTILE
-  const uint32_t sG = sQ + STAGES * QTILE;        // dO, + stage * QTILE
-  const uint32_t sStat = sG + STAGES * QTILE;     // per stage: m, 1/l, Δ of 64 rows
-  const uint32_t kv_full = sStat + STAGES * 3 * WQ * 4;
+  const uint32_t sG = sQ + NST * QTILE;          // dO, + stage * QTILE
+  const uint32_t sStat = sG + NST * QTILE;       // per stage: m, 1/l, Δ of 64 rows
+  const uint32_t kv_full = sStat + NST * 3 * WQ * 4;
   auto full = [&](int s) { return kv_full + 8 * (1 + s); };
-  auto empty = [&](int s) { return kv_full + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + NST + s); };
   float* stat_smem = reinterpret_cast<float*>(smem_raw + (sStat - raw));
 
   const int Hkv = p.H / p.group;
   const int bhk = blockIdx.x, b = bhk / Hkv, hk = bhk % Hkv;
-  const int k0 = blockIdx.y * WK;     // the first key tile (most q tiles) first
+  const int k0 = blockIdx.y * KB;     // the first key tile (most q tiles) first
   const int nq = (p.S + WQ - 1) / WQ;
   const long long plane = (long long)p.B * p.H * p.S;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(full(s), 32);          // every producer lane, one with the bytes
       mbar_init(empty(s), CONSUMERS);
     }
@@ -624,8 +737,8 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane >= 32) return;                      // one warp loads
     if (lane == 0) {
       mbar_expect_tx(kv_full, 2 * KTILE);
-      tma_tile<D>(sK, &tk, kv_full, k0, hk, b, WK);
-      tma_tile<D>(sV, &tv, kv_full, k0, hk, b, WK);
+      tma_tile<D>(sK, &tk, kv_full, k0, hk, b, KB);
+      tma_tile<D>(sV, &tv, kv_full, k0, hk, b, KB);
     }
     int i = 0;
     for (int h = hk * p.group; h < (hk + 1) * p.group; ++h) {
@@ -633,8 +746,8 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int qt = 0; qt < nq; ++qt) {
         const int q0 = qt * WQ;
         if (!visited(p, q0, k0)) continue;
-        const int s = i % STAGES;
-        const uint32_t ph = (i / STAGES) & 1;
+        const int s = i % NST;
+        const uint32_t ph = (i / NST) & 1;
         ++i;
         mbar_wait(empty(s), ph ^ 1);             // both warpgroups are done
         float* ss = stat_smem + s * 3 * WQ;
@@ -657,109 +770,116 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // ---- consumer warpgroups: 64 keys each ----
+  // ---- consumer warpgroups: 64 keys each, or dV and dK of the same 64 ----
   setmaxnreg_inc<CONSUMER_REGS>();
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
-  const int lane = t % 32, g = lane / 4, c = lane % 4;
-  const int kp0 = k0 + wg * 64 + (t / 32) * 16 + g;   // this thread's keys:
-  const int kp1 = kp0 + 8;                            // kp0 and kp0 + 8
-  const int kw0 = k0 + wg * 64;                       // the warpgroup's first
-  const float scale_log2 = p.scale * LOG2E;
+  if constexpr (dkdv_split<D>()) {
+    if (threadIdx.x < 128)
+      dkdv_split_consumer<D, false>(p, st, sK, sV, sQ, sG, kv_full, stat_smem, b, hk, k0, nq, dk, dv);
+    else
+      dkdv_split_consumer<D, true>(p, st, sK, sV, sQ, sG, kv_full, stat_smem, b, hk, k0, nq, dk, dv);
+  } else {
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int lane = t % 32, g = lane / 4, c = lane % 4;
+    const int kp0 = k0 + wg * 64 + (t / 32) * 16 + g;   // this thread's keys:
+    const int kp1 = kp0 + 8;                            // kp0 and kp0 + 8
+    const int kw0 = k0 + wg * 64;                       // the warpgroup's first
+    const float scale_log2 = p.scale * LOG2E;
 
-  float acc_k[D / 2], acc_v[D / 2];
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+    float acc_k[D / 2], acc_v[D / 2];
+  #pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
 
-  const uint64_t dka = smem_desc(sK + wg * 64 * 32, 16, 256);   // A of Sᵀ
-  const uint64_t dva = smem_desc(sV + wg * 64 * 32, 16, 256);   // A of dPᵀ
-  mbar_wait(kv_full, 0);
-  int i = 0;
-  for (int h = hk * p.group; h < (hk + 1) * p.group; ++h) {
-    for (int qt = 0; qt < nq; ++qt) {
-      const int q0 = qt * WQ;
-      if (!visited(p, q0, k0)) continue;
-      const int s = i % STAGES;
-      const uint32_t ph = (i / STAGES) & 1;
-      ++i;
-      mbar_wait(full(s), ph);
-      const uint32_t q_s = sQ + s * QTILE, g_s = sG + s * QTILE;
-      float sc[32], dp[32];
-      {
-        const uint64_t dqb = smem_desc(q_s, 16, 256), dgb = smem_desc(g_s, 16, 256);
+    const uint64_t dka = smem_desc(sK + wg * 64 * 32, 16, 256);   // A of Sᵀ
+    const uint64_t dva = smem_desc(sV + wg * 64 * 32, 16, 256);   // A of dPᵀ
+    mbar_wait(kv_full, 0);
+    int i = 0;
+    for (int h = hk * p.group; h < (hk + 1) * p.group; ++h) {
+      for (int qt = 0; qt < nq; ++qt) {
+        const int q0 = qt * WQ;
+        if (!visited(p, q0, k0)) continue;
+        const int s = i % NST;
+        const uint32_t ph = (i / NST) & 1;
+        ++i;
+        mbar_wait(full(s), ph);
+        const uint32_t q_s = sQ + s * QTILE, g_s = sG + s * QTILE;
+        float sc[32], dp[32];
+        {
+          const uint64_t dqb = smem_desc(q_s, 16, 256), dgb = smem_desc(g_s, 16, 256);
+          wgmma_fence();
+  #pragma unroll
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_ss64(sc, dka + ((kk * KB * 32) >> 4), dqb + ((kk * WQ * 32) >> 4), kk > 0);
+  #pragma unroll
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_ss64(dp, dva + ((kk * KB * 32) >> 4), dgb + ((kk * WQ * 32) >> 4), kk > 0);
+          wgmma_commit();
+          wgmma_wait0();
+          fence_regs(sc);
+          fence_regs(dp);
+        }
+
+        // sc[j], dp[j]: key kp0 + 8·((j>>1)&1), q row q0 + (j>>2)·8 + 2c + (j&1)
+        const float* ss = stat_smem + s * 3 * WQ;
+        const int glo = q0 + p.q_offset;           // the tile's first q position
+        const bool edge = kw0 + 63 >= p.Tk || (p.causal && kw0 + 63 > glo) ||
+                          (p.window > 0 && kw0 <= glo + WQ - 1 - p.window);
+        uint32_t pf[16], sf[16];   // Pᵀ and dSᵀ in bf16: A fragments of dV and dK
+  #pragma unroll
+        for (int j = 0; j < 32; j += 2) {
+          const int kp = (j & 2) ? kp1 : kp0;
+          float pr[2], ds[2];
+  #pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = (j >> 2) * 8 + 2 * c + e;
+            float x = sc[j + e] * scale_log2;
+            bool ok = true;
+            if (edge) {
+              ok = unmasked(p, q0 + r + p.q_offset, kp);
+              if (!ok) x = NEG2;
+            }
+            pr[e] = ex2(x - ss[r]) * ss[WQ + r];
+            ds[e] = ok ? pr[e] * (dp[j + e] - ss[2 * WQ + r]) : 0.f;
+          }
+          pf[j / 2] = pack_bf16(pr[0], pr[1]);
+          sf[j / 2] = pack_bf16(ds[0], ds[1]);
+        }
+
+        // dV += Pᵀ·dO, dK += dSᵀ·Q: dO and Q as B, MN-major (the transpose)
+        const uint64_t dgt = smem_desc(g_s, WQ * 32, 256), dqt = smem_desc(q_s, WQ * 32, 256);
+        fence_regs(acc_v);
+        fence_regs(acc_k);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < NCH; ++kk)
-          wgmma_ss64(sc, dka + ((kk * WK * 32) >> 4), dqb + ((kk * WQ * 32) >> 4), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < NCH; ++kk)
-          wgmma_ss64(dp, dva + ((kk * WK * 32) >> 4), dgb + ((kk * WQ * 32) >> 4), kk > 0);
+  #pragma unroll
+        for (int kk = 0; kk < WQ / 16; ++kk)
+          WgmmaRS<D>::run(acc_v, &pf[4 * kk], dgt + ((kk * 16 * 32) >> 4));
+  #pragma unroll
+        for (int kk = 0; kk < WQ / 16; ++kk)
+          WgmmaRS<D>::run(acc_k, &sf[4 * kk], dqt + ((kk * 16 * 32) >> 4));
         wgmma_commit();
         wgmma_wait0();
-        fence_regs(sc);
-        fence_regs(dp);
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+        mbar_arrive(empty(s));
       }
+    }
 
-      // sc[j], dp[j]: key kp0 + 8·((j>>1)&1), q row q0 + (j>>2)·8 + 2c + (j&1)
-      const float* ss = stat_smem + s * 3 * WQ;
-      const int glo = q0 + p.q_offset;           // the tile's first q position
-      const bool edge = kw0 + 63 >= p.Tk || (p.causal && kw0 + 63 > glo) ||
-                        (p.window > 0 && kw0 <= glo + WQ - 1 - p.window);
-      uint32_t pf[16], sf[16];   // Pᵀ and dSᵀ in bf16: A fragments of dV and dK
-#pragma unroll
-      for (int j = 0; j < 32; j += 2) {
-        const int kp = (j & 2) ? kp1 : kp0;
-        float pr[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = (j >> 2) * 8 + 2 * c + e;
-          float x = sc[j + e] * scale_log2;
-          bool ok = true;
-          if (edge) {
-            ok = unmasked(p, q0 + r + p.q_offset, kp);
-            if (!ok) x = NEG2;
-          }
-          pr[e] = ex2(x - ss[r]) * ss[WQ + r];
-          ds[e] = ok ? pr[e] * (dp[j + e] - ss[2 * WQ + r]) : 0.f;
-        }
-        pf[j / 2] = pack_bf16(pr[0], pr[1]);
-        sf[j / 2] = pack_bf16(ds[0], ds[1]);
+    __nv_bfloat16* dkb = dk + b * st.dk[0] + hk * st.dk[1];
+    __nv_bfloat16* dvb = dv + b * st.dv[0] + hk * st.dv[1];
+  #pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + 2 * c;
+      if (kp0 < p.Tk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (long long)kp0 * st.dk[2] + col) =
+            __floats2bfloat162_rn(acc_k[4 * j] * p.scale, acc_k[4 * j + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (long long)kp0 * st.dv[2] + col) =
+            __floats2bfloat162_rn(acc_v[4 * j], acc_v[4 * j + 1]);
       }
-
-      // dV += Pᵀ·dO, dK += dSᵀ·Q: dO and Q as B, MN-major (the transpose)
-      const uint64_t dgt = smem_desc(g_s, WQ * 32, 256), dqt = smem_desc(q_s, WQ * 32, 256);
-      fence_regs(acc_v);
-      fence_regs(acc_k);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < WQ / 16; ++kk)
-        WgmmaRS<D>::run(acc_v, &pf[4 * kk], dgt + ((kk * 16 * 32) >> 4));
-#pragma unroll
-      for (int kk = 0; kk < WQ / 16; ++kk)
-        WgmmaRS<D>::run(acc_k, &sf[4 * kk], dqt + ((kk * 16 * 32) >> 4));
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(acc_v);
-      fence_regs(acc_k);
-      mbar_arrive(empty(s));
-    }
-  }
-
-  __nv_bfloat16* dkb = dk + b * st.dk[0] + hk * st.dk[1];
-  __nv_bfloat16* dvb = dv + b * st.dv[0] + hk * st.dv[1];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * c;
-    if (kp0 < p.Tk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (long long)kp0 * st.dk[2] + col) =
-          __floats2bfloat162_rn(acc_k[4 * j] * p.scale, acc_k[4 * j + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (long long)kp0 * st.dv[2] + col) =
-          __floats2bfloat162_rn(acc_v[4 * j], acc_v[4 * j + 1]);
-    }
-    if (kp1 < p.Tk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (long long)kp1 * st.dk[2] + col) =
-          __floats2bfloat162_rn(acc_k[4 * j + 2] * p.scale, acc_k[4 * j + 3] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (long long)kp1 * st.dv[2] + col) =
-          __floats2bfloat162_rn(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+      if (kp1 < p.Tk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (long long)kp1 * st.dk[2] + col) =
+            __floats2bfloat162_rn(acc_k[4 * j + 2] * p.scale, acc_k[4 * j + 3] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (long long)kp1 * st.dv[2] + col) =
+            __floats2bfloat162_rn(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+      }
     }
   }
 }
@@ -775,17 +895,18 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const float* __restrict__ stats,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, Strides st, Problem p) {
-  constexpr uint32_t TILE = D * WK * 2;        // bytes of a 128-row tile
+  constexpr int KT = kv_rows<D>();             // kv rows per tile
+  constexpr int BQ2 = 2 * WQ;                  // q rows per block
+  constexpr uint32_t TILE = D * BQ2 * 2;       // bytes of the 128-row Q or dO tile
+  constexpr uint32_t KTILE = D * KT * 2;       // bytes of a K or V tile
   constexpr int NCH = D / CHUNK;
   constexpr int NS = dq_stages<D>();
-  constexpr int BQ2 = 2 * WQ;                  // q rows per block
-  static_assert(BQ2 == WK, "one tile size for Q, dO, K and V");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sG = sQ + TILE;
-  const uint32_t sK = sG + TILE;                 // + stage * TILE
-  const uint32_t sV = sK + NS * TILE;
-  const uint32_t q_full = sV + NS * TILE;        // then full, empty
+  const uint32_t sK = sG + TILE;                 // + stage * KTILE
+  const uint32_t sV = sK + NS * KTILE;
+  const uint32_t q_full = sV + NS * KTILE;       // then full, empty
   auto full = [&](int s) { return q_full + 8 * (1 + s); };
   auto empty = [&](int s) { return q_full + 8 * (1 + NS + s); };
 
@@ -795,10 +916,10 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // the kv tiles some row of this block can see (the forward's range)
   const int qlo = q0 + p.q_offset, qhi = q0 + BQ2 - 1 + p.q_offset;
-  const int nk = (p.Tk + WK - 1) / WK;
-  const int kt_end = p.causal ? min(nk, qhi / WK + 1) : nk;
+  const int nk = (p.Tk + KT - 1) / KT;
+  const int kt_end = p.causal ? min(nk, qhi / KT + 1) : nk;
   const int first = qlo - p.window + 1;          // first key row qlo may see
-  const int kt_begin = (p.window > 0 && first > 0) ? first / WK : 0;
+  const int kt_begin = (p.window > 0 && first > 0) ? first / KT : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -820,9 +941,9 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = i % NS;
         const uint32_t ph = (i / NS) & 1;
         mbar_wait(empty(s), ph ^ 1);             // both warpgroups are done
-        mbar_expect_tx(full(s), 2 * TILE);
-        tma_tile<D>(sK + s * TILE, &tk, full(s), kt * WK, hk, b, WK);
-        tma_tile<D>(sV + s * TILE, &tv, full(s), kt * WK, hk, b, WK);
+        mbar_expect_tx(full(s), 2 * KTILE);
+        tma_tile<D>(sK + s * KTILE, &tk, full(s), kt * KT, hk, b, KT);
+        tma_tile<D>(sV + s * KTILE, &tv, full(s), kt * KT, hk, b, KT);
       }
     }
     return;
@@ -859,20 +980,29 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
     const int s = i % NS;
     const uint32_t ph = (i / NS) & 1;
-    const int k0 = kt * WK;
+    const int k0 = kt * KT;
     mbar_wait(full(s), ph);
     if (visited(p, g0, k0)) {
-      float sc[64], dp[64];
+      float sc[KT / 2], dp[KT / 2];
       {
-        const uint64_t dkb = smem_desc(sK + s * TILE, 16, 256);
-        const uint64_t dvb = smem_desc(sV + s * TILE, 16, 256);
+        const uint64_t dkb = smem_desc(sK + s * KTILE, 16, 256);
+        const uint64_t dvb = smem_desc(sV + s * KTILE, 16, 256);
         wgmma_fence();
+        if constexpr (KT == 128) {
 #pragma unroll
-        for (int kk = 0; kk < NCH; ++kk)
-          wgmma_qk(sc, dqa + ((kk * BQ2 * 32) >> 4), dkb + ((kk * WK * 32) >> 4), kk > 0);
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_qk(sc, dqa + ((kk * BQ2 * 32) >> 4), dkb + ((kk * KT * 32) >> 4), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < NCH; ++kk)
-          wgmma_qk(dp, dga + ((kk * BQ2 * 32) >> 4), dvb + ((kk * WK * 32) >> 4), kk > 0);
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_qk(dp, dga + ((kk * BQ2 * 32) >> 4), dvb + ((kk * KT * 32) >> 4), kk > 0);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_ss64(sc, dqa + ((kk * BQ2 * 32) >> 4), dkb + ((kk * KT * 32) >> 4), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < NCH; ++kk)
+            wgmma_ss64(dp, dga + ((kk * BQ2 * 32) >> 4), dvb + ((kk * KT * 32) >> 4), kk > 0);
+        }
         wgmma_commit();
         wgmma_wait0();
         fence_regs(sc);
@@ -880,11 +1010,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // sc[j], dp[j]: row row0 + 8·((j>>1)&1), key k0 + (j>>2)·8 + 2c + (j&1)
-      const bool edge = k0 + WK > p.Tk || (p.causal && k0 + WK - 1 > wlo) ||
+      const bool edge = k0 + KT > p.Tk || (p.causal && k0 + KT - 1 > wlo) ||
                         (p.window > 0 && k0 <= whi - p.window);
-      uint32_t sf[32];   // dS in bf16: the A fragments of dS·K
+      uint32_t sf[KT / 4];   // dS in bf16: the A fragments of dS·K
 #pragma unroll
-      for (int j = 0; j < 64; j += 2) {
+      for (int j = 0; j < KT / 2; j += 2) {
         const bool hi = j & 2;
         const int qp = hi ? qp1 : qp0;
         const float m = hi ? m1 : m0, il = hi ? il1 : il0, dl = hi ? dl1 : dl0;
@@ -904,11 +1034,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // dQ += dS·K: K as B, MN-major (the transpose)
-      const uint64_t dkt = smem_desc(sK + s * TILE, WK * 32, 256);
+      const uint64_t dkt = smem_desc(sK + s * KTILE, KT * 32, 256);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk)
+      for (int kk = 0; kk < KT / 16; ++kk)
         WgmmaRS<D>::run(acc, &sf[4 * kk], dkt + ((kk * 16 * 32) >> 4));
       wgmma_commit();
       wgmma_wait0();
@@ -939,7 +1069,10 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
       reinterpret_cast<EncodeTiledFn>(cu_entry_point("cuTensorMapEncodeTiled"));
   if (!encode) return (int)cudaErrorSymbolNotFound;
   const int Hkv = p.H / p.group;
-  // Q and dO in 64-row boxes (dK/dV) and 128-row boxes (dQ); K and V in 128.
+  // Q and dO in 64-row boxes (dK/dV) and 128-row boxes (dQ); K and V in
+  // 128 (64 from D = 224: kv_rows, which is also the dK/dV block's keys).
+  if (p.kv_tile != kv_rows<D>()) return (int)cudaErrorInvalidValue;
+  static_assert(kv_rows<D>() == dkdv_keys<D>(), "one K/V box for both kernels");
   CUtensorMap tq64, tdo64, tq, tdo, tk, tv;
   CUresult r = make_map(encode, &tq64, q, D, p.S, p.H, p.B, 2 * st.q[2],
                         2 * st.q[1], 2 * st.q[0], WQ);
@@ -954,16 +1087,17 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                  2 * st.dout[1], 2 * st.dout[0], 2 * WQ);
   if (r == CUDA_SUCCESS)
     r = make_map(encode, &tk, k, D, p.Tk, Hkv, p.B, 2 * st.k[2], 2 * st.k[1],
-                 2 * st.k[0], WK);
+                 2 * st.k[0], kv_rows<D>());
   if (r == CUDA_SUCCESS)
     r = make_map(encode, &tv, v, D, p.Tk, Hkv, p.B, 2 * st.v[2], 2 * st.v[1],
-                 2 * st.v[0], WK);
+                 2 * st.v[0], kv_rows<D>());
   if (r != CUDA_SUCCESS) return CU_ERR + (int)r;
 
   constexpr int NS = dq_stages<D>();
-  const size_t smem_kv = 1024 + (size_t)D * WK * 2 * 2 + (size_t)D * WQ * 2 * 2 * STAGES +
-                         STAGES * 3 * WQ * 4 + 8 * (1 + 2 * STAGES);
-  const size_t smem_q = 1024 + (size_t)D * WK * 2 * (2 + 2 * NS) + 8 * (1 + 2 * NS);
+  constexpr int KB = dkdv_keys<D>(), NST = dkdv_stages<D>(), KT = kv_rows<D>();
+  const size_t smem_kv = 1024 + (size_t)D * KB * 2 * 2 + (size_t)D * WQ * 2 * 2 * NST +
+                         NST * 3 * WQ * 4 + 8 * (1 + 2 * NST);
+  const size_t smem_q = 1024 + (size_t)D * 2 * (2 * 2 * WQ + 2 * NS * KT) + 8 * (1 + 2 * NS);
   cudaError_t err = allow_smem(fa_bwd_dkdv_wgmma_kernel<D>, smem_kv);
   if (err == cudaSuccess) err = allow_smem(fa_bwd_dq_wgmma_kernel<D>, smem_q);
   if (err != cudaSuccess) return (int)err;
@@ -974,7 +1108,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   fa_bwd_delta_kernel<D><<<(unsigned)((rows + 63) / 64), 256, 0, stream>>>(
       o_, g_, delta, st, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 kgrid(p.B * Hkv, (p.Tk + WK - 1) / WK);
+  const dim3 kgrid(p.B * Hkv, (p.Tk + KB - 1) / KB);
   fa_bwd_dkdv_wgmma_kernel<D><<<kgrid, WTHREADS, smem_kv, stream>>>(
       tq64, tk, tv, tdo64, stats, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), st, p);
@@ -1009,6 +1143,11 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* o
     case 96: return launch<BF16, 96>(q, k, v, o, dout, dq, dk, dv, stats, delta, st, p, s);
     case 112: return launch<BF16, 112>(q, k, v, o, dout, dq, dk, dv, stats, delta, st, p, s);
     case 128: return launch<BF16, 128>(q, k, v, o, dout, dq, dk, dv, stats, delta, st, p, s);
+    case 224:   // Zamba2-7B's shared attention: the bfloat16 kernels only
+      if constexpr (BF16)
+        return launch<BF16, 224>(q, k, v, o, dout, dq, dk, dv, stats, delta, st, p, s);
+      else
+        return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1023,7 +1162,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* o
 // B·H·S floats of scratch; q, k, v and dout as TMA takes them (strides of
 // multiples of 8 elements, 16-byte-aligned pointers) and o 16-byte-aligned
 // too (the wrapper checks).  kv_tile: the forward kernel's kv tile (64 for
-// float32, 128 for bfloat16).  window <= 0 means none.  Returns 0, a
+// float32, 128 for bfloat16 up to D = 128 and 64 at D = 224).  window <= 0 means none.  Returns 0, a
 // cudaError_t, or 1000 + a CUresult of the tensor-map encode.
 extern "C" int fa_bwd_launch(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, void* dq, void* dk,
@@ -1032,7 +1171,7 @@ extern "C" int fa_bwd_launch(const void* q, const void* k, const void* v,
                              const long long* strides, float scale, int causal,
                              int window, int q_offset, int kv_tile, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 || Tk <= 0 ||
-      kv_tile <= 0 || kv_tile % BK || (dtype == 1 && (kv_tile != WK || !delta)))
+      kv_tile <= 0 || kv_tile % BK || (dtype == 1 && !delta))
     return (int)cudaErrorInvalidValue;
   Strides st;
   long long* dst[8] = {st.q, st.k, st.v, st.o, st.dout, st.dq, st.dk, st.dv};

@@ -40,12 +40,14 @@ import torch
 __all__ = ["flash_attention", "fa_plain", "FlashAttentionFn", "fa_backward",
            "fa_backward_plain", "fa_forward_with_stats", "fa_stats_plain",
            "tma_problem", "launch_count", "bwd_launch_count",
-           "reset_launch_count", "NEG", "NEG2", "HEAD_DIMS", "KV_TILE"]
+           "reset_launch_count", "NEG", "NEG2", "HEAD_DIMS", "KV_TILE",
+           "BF16_HEAD_DIMS", "kv_tile"]
 
 NEG = -1e9
 LOG2E = math.log2(math.e)
 NEG2 = NEG * LOG2E   # a masked score in the statistics' base-2 domain
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)   # the kernel's instances
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)   # the kernels' instances
+BF16_HEAD_DIMS = HEAD_DIMS + (224,)   # D = 224 (Zamba2-7B): bfloat16 only
 _PLAIN_BK = 512      # kv rows per step of the plain version's online softmax
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The forward kernels' kv tiles: a tile that no row of a 64-row q group can
@@ -57,6 +59,17 @@ _PLAIN_BQ = 512      # q rows per step of the plain backward
 LAUNCHES = 0         # forward kernel launches since the last reset
 BWD_LAUNCHES = 0     # backward launches (three kernels each) since then
 _LAUNCH_LOCK = threading.Lock()
+
+
+def kv_tile(dtype: torch.dtype, D: int) -> int:
+    """The forward kernel's kv tile for ``dtype`` at head dim ``D``:
+    ``KV_TILE[dtype]``, but 64 for the bfloat16 kernel above D = 128,
+    whose 64-row K/V tiles keep its accumulators in registers."""
+    return 64 if dtype == torch.bfloat16 and D > 128 else KV_TILE[dtype]
+
+
+def _scale(D: int, scale: Optional[float]) -> float:
+    return D ** -0.5 if scale is None else float(scale)
 
 
 def launch_count() -> int:
@@ -87,12 +100,14 @@ def _count_launch(backward: bool = False) -> None:
 
 def fa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool = True, window: Optional[int] = None,
-             q_offset: int = 0, kv_tile: Optional[int] = None) -> torch.Tensor:
+             q_offset: int = 0, kv_tile: Optional[int] = None,
+             scale: Optional[float] = None) -> torch.Tensor:
     """q (B,H,S,D); k/v (B,Hkv,T,D), H % Hkv == 0.  Returns (B,H,S,D) in
     q's dtype, on q's device.  ``kv_tile=None`` visits every key, as the TPU
-    kernel does; ``kv_tile=KV_TILE[dtype]`` follows the CUDA kernel's skip
-    rule (as in :func:`fa_backward_plain`), which differs only on rows
-    whose every key is masked."""
+    kernel does; ``kv_tile=kv_tile(dtype, D)`` follows the CUDA kernel's
+    skip rule (as in :func:`fa_backward_plain`), which differs only on rows
+    whose every key is masked.  ``scale``: the scores' factor, D^-0.5 by
+    default."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -114,7 +129,7 @@ def fa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= kpos <= qpos
         if window is not None:
             mask &= kpos > qpos - window
-        s = (qg @ kt.transpose(-1, -2)) * D ** -0.5
+        s = (qg @ kt.transpose(-1, -2)) * _scale(D, scale)
         s = torch.where(mask, s, NEG)
         if kv_tile is not None:
             s = torch.where(seen[:, k0:k0 + kt.shape[3]], s, -torch.inf)
@@ -151,9 +166,9 @@ def _tile_seen(rows, T, *, causal, window, q_offset, kv_tile):
     return seen, tile_seen[:, -1:].to(torch.float32) * (n_kt * kv_tile - T)
 
 
-def _row_blocks(q, k, *, causal, window, q_offset, kv_tile):
+def _row_blocks(q, k, *, causal, window, q_offset, kv_tile, scale=None):
     """Per block of up to _PLAIN_BQ q rows: (r0, n, s, mask, pad), with s the
-    scores q·kᵀ·D^-0.5·log2 e in f32 as (B, Hkv, g, n, T), NEG2 where
+    scores q·kᵀ·scale·log2 e in f32 as (B, Hkv, g, n, T), NEG2 where
     masked and -inf on keys of tiles the row never visits, and pad (n, 1)
     the padding slots past T that a row's visited tiles hold."""
     B, H, S, D = q.shape
@@ -174,25 +189,28 @@ def _row_blocks(q, k, *, causal, window, q_offset, kv_tile):
         seen, pad = _tile_seen(rows, T, causal=causal, window=window,
                                q_offset=q_offset, kv_tile=kv_tile)
         qc = q[:, :, r0:r0 + n].float().reshape(B, Hkv, g, n, D)
-        s = torch.where(mask, (qc @ kf.transpose(-1, -2)) * (D ** -0.5 * LOG2E),
+        s = torch.where(mask, (qc @ kf.transpose(-1, -2)) * (_scale(D, scale) * LOG2E),
                         NEG2)
         yield r0, n, torch.where(seen, s, -torch.inf), mask, pad
 
 
 def fa_stats_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0,
-                   kv_tile: Optional[int] = None) -> torch.Tensor:
+                   kv_tile: Optional[int] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """Each row's softmax statistics as the bfloat16 forward kernel writes
     them (``fa_forward_with_stats``): a (2, B·H·S) float32 tensor, row
     (b·H + h)·S + s, holding the row's max m of its visited scores in the
-    base-2 domain (score·D^-0.5·log2 e, masked scores at NEG2; NEG2 where
+    base-2 domain (score·scale·log2 e, masked scores at NEG2; NEG2 where
     no tile is visited) and 1/l, l = Σ 2^(s - m) over the visited slots
     (padding past T included), 0 where l = 0.  ``kv_tile`` as in
-    :func:`fa_backward_plain`; ``None`` visits every key."""
+    :func:`fa_backward_plain`; ``None`` visits every key.  ``scale``:
+    D^-0.5 by default."""
     B, H, S, _ = q.shape
     out = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
     for r0, n, s, _, pad in _row_blocks(q, k, causal=causal, window=window,
-                                        q_offset=q_offset, kv_tile=kv_tile):
+                                        q_offset=q_offset, kv_tile=kv_tile,
+                                        scale=scale):
         m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG2)
         l = torch.exp2(s - m).sum(dim=-1, keepdim=True) + pad * torch.exp2(NEG2 - m)
         out[0, :, :, r0:r0 + n] = m.reshape(B, H, n)
@@ -204,19 +222,21 @@ def fa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
                       window: Optional[int] = None, q_offset: int = 0,
                       kv_tile: Optional[int] = None,
-                      stats: Optional[torch.Tensor] = None):
+                      stats: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention`` in q's, k's and v's dtypes: the
     backward kernel's steps in eager PyTorch, in f32, over blocks of q
     rows.  (1) Each row's max m and 1/l over the keys it visits
     (:func:`fa_stats_plain`, or ``stats`` in its layout, e.g. the forward
     kernel's), and Δ = rowsum(do ∘ o); (2) P = 2^(s - m)/l,
     dv = Σ Pᵀ·do, dS = P ∘ (do·vᵀ - Δ), 0 where masked,
-    dk = Σ dSᵀ·q·D^-0.5; (3) dq = dS·k·D^-0.5.  The forward's rounding of
-    P to v's dtype is taken as the identity.
+    dk = Σ dSᵀ·q·D^-0.5; (3) dq = dS·k·D^-0.5 (``scale`` in D^-0.5's
+    place where given).  The forward's rounding of P to v's dtype is taken
+    as the identity.
 
     ``kv_tile=None`` differentiates :func:`fa_plain`: every row visits every
     key, so a row whose keys are all masked averages v over all T keys.
-    ``kv_tile=KV_TILE[dtype]`` differentiates the CUDA forward kernel,
+    ``kv_tile=kv_tile(dtype, D)`` differentiates the CUDA forward kernel,
     which skips each kv tile of that many rows that no row of a 64-row q
     group can see, and counts the padding slots past T of a visited tile
     in l; the two differ only on rows whose every key is masked.
@@ -225,17 +245,18 @@ def fa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, T = k.shape[1], k.shape[2]
     g = H // Hkv
     dev, f32 = q.device, torch.float32
-    scale = D ** -0.5
+    scale = _scale(D, scale)
     if stats is None:
         stats = fa_stats_plain(q, k, causal=causal, window=window,
-                               q_offset=q_offset, kv_tile=kv_tile)
+                               q_offset=q_offset, kv_tile=kv_tile, scale=scale)
     stats = stats.reshape(2, B, Hkv, g, S, 1)
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]    # (B,Hkv,1,T,D)
     dk = torch.zeros((B, Hkv, T, D), dtype=f32, device=dev)
     dv = torch.zeros((B, Hkv, T, D), dtype=f32, device=dev)
     dq = torch.empty((B, H, S, D), dtype=f32, device=dev)
     for r0, n, s, mask, _ in _row_blocks(q, k, causal=causal, window=window,
-                                         q_offset=q_offset, kv_tile=kv_tile):
+                                         q_offset=q_offset, kv_tile=kv_tile,
+                                         scale=scale):
         m, inv_l = stats[0, ..., r0:r0 + n, :], stats[1, ..., r0:r0 + n, :]
         qc = q[:, :, r0:r0 + n].float().reshape(B, Hkv, g, n, D)
         dc = do[:, :, r0:r0 + n].float().reshape(B, Hkv, g, n, D)
@@ -311,26 +332,29 @@ class FlashAttentionFn(torch.autograd.Function):
     recomputes them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, scale=None):
         stats = _empty_stats(q) if q.dtype == torch.bfloat16 else None
-        out = _fa_launch(q, k, v, causal, window, q_offset, stats=stats)
+        out = _fa_launch(q, k, v, causal, window, q_offset, stats=stats,
+                         scale=scale)
         ctx.save_for_backward(q, k, v, out, stats)
-        ctx.args = (causal, window, q_offset)
+        ctx.args = (causal, window, q_offset, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, stats = ctx.saved_tensors
-        causal, window, q_offset = ctx.args
+        causal, window, q_offset, scale = ctx.args
         dq, dk, dv = fa_backward(q, k, v, out, do, causal=causal,
-                                 window=window, q_offset=q_offset, stats=stats)
-        return dq, dk, dv, None, None, None
+                                 window=window, q_offset=q_offset, stats=stats,
+                                 scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
                 window: Optional[int] = None, q_offset: int = 0,
-                stats: Optional[torch.Tensor] = None):
+                stats: Optional[torch.Tensor] = None,
+                scale: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` with output ``o`` and
     output gradient ``do``, by the CUDA backward kernels: one launch (three
     kernels) on the current stream, no synchronise.  The gradients come
@@ -353,7 +377,7 @@ def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "meta":
         # the dry run's device has no kernel: the plain version, by name
         return fa_backward_plain(q, k, v, o, do, causal=causal, window=window,
-                                 q_offset=q_offset, stats=stats)
+                                 q_offset=q_offset, stats=stats, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"the flash-attention backward kernel runs on CUDA, "
                          f"not {q.device}; use fa_backward_plain")
@@ -392,9 +416,9 @@ def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             stats.data_ptr(), None if delta is None else delta.data_ptr(),
-            _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides, float(D ** -0.5),
+            _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides, _scale(D, scale),
             int(causal), 0 if window is None else int(window), int(q_offset),
-            KV_TILE[q.dtype], stream)
+            kv_tile(q.dtype, D), stream)
     if err != 0:
         raise RuntimeError(f"fa_bwd_launch failed: {_what(err)} "
                            f"({lib.fa_bwd_error_string(err).decode()})")
@@ -440,16 +464,18 @@ def _check(q, k, v) -> None:
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    dims = BF16_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"head dim {D} not in {dims} for {q.dtype}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on the last axis")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """softmax(q·kᵀ·D^-0.5 + mask)·v.
+                    q_offset: int = 0, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + mask)·v, ``scale`` D^-0.5 by default.
 
     q (B,H,S,D); k, v (B,Hkv,T,D) with H % Hkv == 0, one dtype (float32 or
     bfloat16), one device; any strides with a unit last axis.  ``q_offset``
@@ -463,15 +489,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be positive, got {window}")
     if q.device.type == "cpu":
         return fa_plain(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset)
+                        q_offset=q_offset, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
-    return _fa_launch(q, k, v, causal, window, q_offset)
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, scale)
+    return _fa_launch(q, k, v, causal, window, q_offset, scale=scale)
 
 
 def fa_forward_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: Optional[int] = None,
-                          q_offset: int = 0):
+                          q_offset: int = 0, scale: Optional[float] = None):
     """``(flash_attention(q, k, v), stats)`` without autograd: ``stats`` is
     the (2, B·H·S) float32 tensor of each row's m (base 2) and 1/l that
     :func:`fa_backward` needs in bfloat16 (:func:`fa_stats_plain` has the
@@ -483,14 +509,15 @@ def fa_forward_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be positive, got {window}")
     if q.device.type == "cpu":
         return (fa_plain(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset),
+                         q_offset=q_offset, scale=scale),
                 fa_stats_plain(q, k, causal=causal, window=window,
-                               q_offset=q_offset))
+                               q_offset=q_offset, scale=scale))
     if q.dtype != torch.bfloat16:
         raise ValueError(f"only the bfloat16 kernel writes the softmax "
                          f"statistics, not the {q.dtype} one")
     stats = _empty_stats(q)
-    return _fa_launch(q, k, v, causal, window, q_offset, stats=stats), stats
+    return _fa_launch(q, k, v, causal, window, q_offset, stats=stats,
+                      scale=scale), stats
 
 
 def _empty_stats(q: torch.Tensor) -> torch.Tensor:
@@ -525,7 +552,8 @@ def _what(err: int) -> str:
             f"CUresult {err - 1000} encoding a tensor map")
 
 
-def _fa_launch(q, k, v, causal, window, q_offset, stats=None) -> torch.Tensor:
+def _fa_launch(q, k, v, causal, window, q_offset, stats=None,
+               scale=None) -> torch.Tensor:
     """One forward launch on inputs that ``_check`` passed, on CUDA; with
     ``stats`` (bfloat16 only, (2, B·H·S) float32) the kernel also writes
     each row's m and 1/l there.  On the ``meta`` device (the dry run,
@@ -535,9 +563,9 @@ def _fa_launch(q, k, v, causal, window, q_offset, stats=None) -> torch.Tensor:
         # the dry run's device has no kernel: the plain versions, by name
         if stats is not None:
             stats.copy_(fa_stats_plain(q, k, causal=causal, window=window,
-                                       q_offset=q_offset))
+                                       q_offset=q_offset, scale=scale))
         return fa_plain(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset)
+                        q_offset=q_offset, scale=scale)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
@@ -553,7 +581,7 @@ def _fa_launch(q, k, v, causal, window, q_offset, stats=None) -> torch.Tensor:
                             out.data_ptr(),
                             None if stats is None else stats.data_ptr(),
                             _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides,
-                            float(D ** -0.5), int(causal),
+                            _scale(D, scale), int(causal),
                             0 if window is None else int(window),
                             int(q_offset), stream)
     if err != 0:

@@ -42,14 +42,16 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def naive_attention(q, k, v, *, causal: bool, window: Optional[int],
-                    q_offset: int = 0) -> torch.Tensor:
-    """Materialised reference. q_offset: absolute position of q[0] vs k[0]."""
+                    q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Materialised reference. q_offset: absolute position of q[0] vs k[0];
+    ``scale``: the scores' factor, Dh^-0.5 by default."""
     B, S, H, Dh = q.shape
     T = k.shape[1]
     k = _repeat_kv(k, H // k.shape[2])
     v = _repeat_kv(v, H // v.shape[2])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-    scores = scores * Dh ** -0.5
+    scores = scores * (Dh ** -0.5 if scale is None else scale)
     qpos = torch.arange(S, device=q.device)[:, None] + q_offset
     kpos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -84,11 +86,12 @@ def _chunk_body(q_blk, k_blk, v_blk, carry, qpos, kpos, kv_len, *, causal,
 
 def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
                       q_chunk: int, kv_chunk: int, causal_skip: bool = False,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
     B, S, H, Dh = q.shape
     T = k.shape[1]
     groups = H // k.shape[2]
-    scale = Dh ** -0.5
+    scale = Dh ** -0.5 if scale is None else scale
     cq = min(q_chunk, S)
     ck = min(kv_chunk, T)
     nq, nk = -(-S // cq), -(-T // ck)
@@ -123,18 +126,22 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               impl: str = "chunked", q_chunk: int = 1024, kv_chunk: int = 512,
-              causal_skip: bool = False, q_offset: int = 0) -> torch.Tensor:
+              causal_skip: bool = False, q_offset: int = 0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """``scale``: the scores' factor, Dh^-0.5 by default (Zamba2 passes
+    (Dh/2)^-0.5), on every path."""
     if q.device.type in ("cuda", "meta") and impl in _KERNEL_IMPLS:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window,
-                              q_offset=q_offset)
+                              q_offset=q_offset, scale=scale)
         return out.transpose(1, 2)
     if impl == "naive" or q.shape[1] * k.shape[1] <= 256 * 256:
         return naive_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, scale=scale)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              q_chunk=q_chunk, kv_chunk=kv_chunk,
-                             causal_skip=causal_skip, q_offset=q_offset)
+                             causal_skip=causal_skip, q_offset=q_offset,
+                             scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,

@@ -10,7 +10,11 @@ Mamba2-SSD / cross-attention) according to ``cfg.layer_kinds()``:
               block whose parameters are *shared* across groups;
   * vlm     — llama-3.2-vision: groups of (cross_attn_every-1) self-attention
               blocks + 1 cross-attention block over the projected vision
-              stream.
+              stream;
+  * zamba2  — Zamba2 at its published equations (``models/zamba2.py``):
+              Mamba2 layers with grouped B/C, and hybrid layers that feed
+              (x, embedding) to one of two alternating shared blocks; no
+              counterpart in the JAX package, training only.
 
 The stacks run as Python loops over the leading axes (the reference's
 ``lax.scan``), over the per-layer views that one ``unbind(0)`` per stacked
@@ -66,6 +70,7 @@ keeps one copy).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -91,7 +96,8 @@ __all__ = ["init_params", "init_params_spec", "forward_hidden", "loss_fn",
            "SUPPORTED_FAMILIES"]
 
 Params = Dict[str, Any]
-SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio",
+                      "zamba2")
 _UNIFORM = ("dense", "moe", "audio")
 
 
@@ -188,6 +194,9 @@ def _layers(tree) -> List[Any]:
 
 
 def _build_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
+    if cfg.family == "zamba2":
+        from . import zamba2
+        return zamba2.init_params(cfg, gen)
     segs = segment_counts(cfg)
     V, d, dt = cfg.vocab_padded, cfg.d_model, cfg.param_dtype
     params: Params = {
@@ -363,24 +372,45 @@ class _LeaveRange(torch.autograd.Function):
         return (None, *grads)
 
 
+def _span(name: str, fn: Callable, *args):
+    """``fn(*args)`` under a profiler range ``name``, and while a profiler
+    runs, its backward under one too: a prehook on the output's node
+    enters it, and the backward of :class:`_LeaveRange`, through which the
+    floating-point tensors among ``args`` and in its dicts (one level)
+    pass, leaves it.  Off, one flag read a call."""
+    box: List[Any] = []
+    traced = (torch.autograd.profiler._is_profiler_enabled
+              and torch.is_grad_enabled())
+    if traced:
+        args = [dict(a) if isinstance(a, dict) else a for a in args]
+        slots = [(i, None) for i, a in enumerate(args)
+                 if torch.is_tensor(a) and a.is_floating_point()]
+        slots += [(i, k) for i, a in enumerate(args) if isinstance(a, dict)
+                  for k, v in a.items()
+                  if torch.is_tensor(v) and v.is_floating_point()]
+        held = _LeaveRange.apply(box, *(args[i] if k is None else args[i][k]
+                                        for i, k in slots))
+        for (i, k), t in zip(slots, held):
+            if k is None:
+                args[i] = t
+            else:
+                args[i][k] = t
+    with record_function(name):
+        out = fn(*args)
+    if traced and out.grad_fn is not None:
+        out.grad_fn.register_prehook(lambda _: box.append(
+            record_function(name).__enter__()))
+    return out
+
+
 def _ce_range(fn: Callable) -> Callable:
-    """``fn(x_c, labels_c, head, ...)`` under a profiler range
-    ("train.ce"), and while a profiler runs, the chunk's backward under
-    one too: a prehook on the output's node enters it, the backward of
-    :class:`_LeaveRange` on ``x_c`` and ``head`` leaves it.  Off, one flag
-    read a chunk."""
-    def ranged(x_c, labels_c, head, *args):
-        box: List[Any] = []
-        traced = (torch.autograd.profiler._is_profiler_enabled
-                  and torch.is_grad_enabled())
-        if traced:
-            x_c, head = _LeaveRange.apply(box, x_c, head)
-        with record_function("train.ce"):
-            out = fn(x_c, labels_c, head, *args)
-        if traced and out.grad_fn is not None:
-            out.grad_fn.register_prehook(lambda _: box.append(
-                record_function("train.ce").__enter__()))
-        return out
+    """``fn(x_c, labels_c, head, ...)`` under :func:`_span`'s range
+    "train.ce": the chunk's forward, its recompute and, while a profiler
+    runs, its backward (left once ``x_c``'s and ``head``'s gradients are
+    made)."""
+    @functools.wraps(fn)
+    def ranged(*args):
+        return _span("train.ce", fn, *args)
     return ranged
 
 
@@ -629,6 +659,10 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``mode``: "train" (no cache; remat per ``cfg.remat``), "prefill" or
     "decode"."""
     _check_family(cfg)
+    if cfg.family == "zamba2":
+        from . import zamba2
+        x = zamba2.forward_hidden(params, x, cfg, mode=mode, positions=positions)
+        return x, _sum_aux([], x.device), {}
     rolling = cfg.sliding_window is not None and mode == "decode"
     keep = mode in ("decode", "prefill")
     decode = mode == "decode"
@@ -793,7 +827,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
                             cfg).mean() for cb in range(cfg.n_codebooks)]
         ce = sum(losses) / cfg.n_codebooks
     else:
-        ce = _vocab_ce(x, params["lm_head"], batch["labels"], cfg).mean()
+        head = params["embed"] if cfg.family == "zamba2" else params["lm_head"]
+        ce = _vocab_ce(x, head, batch["labels"], cfg).mean()
     ctx = sharded_ctx()
     if ctx is not None:
         # this rank's rows' share of the global mean (rows split evenly, or
@@ -806,6 +841,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     return loss, {"ce": ce, "aux": aux}
 
 
+def _no_serving(cfg: ModelConfig) -> None:
+    if cfg.family == "zamba2":
+        from .zamba2 import SERVING_CELL
+        raise NotImplementedError(
+            f"{cfg.name}: the zamba2 family trains only; prefill, decode and "
+            f"their caches wait for the serving cell {SERVING_CELL}")
+
+
 def prefill(params: Params, batch, cfg: ModelConfig):
     """Forward pass that also returns the populated cache + last logits.
 
@@ -814,6 +857,7 @@ def prefill(params: Params, batch, cfg: ModelConfig):
     (B,n_codebooks,V) for audio, cache).  Under a sharded context: this
     rank's rows and shards, the full logits of its rows, its local cache
     (see the module's docstring)."""
+    _no_serving(cfg)
     x, vision = _embed_batch(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -835,6 +879,7 @@ def decode_step(params: Params, batch, cache, cache_len: int, cfg: ModelConfig):
     Returns (logits as ``prefill``'s, new_cache).  Under a sharded
     context ``cache`` is this rank's, as ``prefill`` and ``init_cache``
     make it."""
+    _no_serving(cfg)
     x, vision = _embed_batch(params, batch, cfg)
     cache_len = int(cache_len)
     positions = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,
@@ -857,6 +902,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     split over the data group where they divide, and the rank's kv
     heads."""
     _check_family(cfg)
+    _no_serving(cfg)
     dev = resolve_device(device)
     kv = _kv_heads_alloc(cfg)
     ctx = sharded_ctx()

@@ -176,8 +176,9 @@ def test_function_plumbing_on_views(monkeypatch):
     """FlashAttentionFn saves q, k, v and o and returns one gradient per
     input in its layout; on the CPU its two launches are replaced by the
     plain versions, which is what the card's kernels are held to."""
-    monkeypatch.setattr(fa, "_fa_launch", lambda q, k, v, c, w, o, stats=None:
-                        fa.fa_plain(q, k, v, causal=c, window=w, q_offset=o))
+    monkeypatch.setattr(fa, "_fa_launch", lambda q, k, v, c, w, o, stats=None, scale=None:
+                        fa.fa_plain(q, k, v, causal=c, window=w, q_offset=o,
+                                    scale=scale))
     monkeypatch.setattr(fa, "fa_backward", fa.fa_backward_plain)
     q, k, v, do, kw = _inputs(CASES["window_gqa"], seed=4)
     qs, ks, vs = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
@@ -281,17 +282,18 @@ def test_function_saves_stats_and_recomputes_them_under_checkpoint(monkeypatch):
     test_function_plumbing_on_views."""
     launches = []
 
-    def launch(q, k, v, c, w, o, stats=None):
+    def launch(q, k, v, c, w, o, stats=None, scale=None):
         launches.append(stats)
         if stats is not None:
-            stats.copy_(fa.fa_stats_plain(q, k, causal=c, window=w, q_offset=o))
-        return fa.fa_plain(q, k, v, causal=c, window=w, q_offset=o)
+            stats.copy_(fa.fa_stats_plain(q, k, causal=c, window=w, q_offset=o,
+                                          scale=scale))
+        return fa.fa_plain(q, k, v, causal=c, window=w, q_offset=o, scale=scale)
 
-    def backward(q, k, v, o, do, *, causal, window, q_offset, stats):
+    def backward(q, k, v, o, do, *, causal, window, q_offset, stats, scale=None):
         assert stats is not None and stats.shape == (2, B * H * S)
         return fa.fa_backward_plain(q, k, v, o, do, causal=causal,
                                     window=window, q_offset=q_offset,
-                                    stats=stats)
+                                    stats=stats, scale=scale)
 
     monkeypatch.setattr(fa, "_fa_launch", launch)
     monkeypatch.setattr(fa, "fa_backward", backward)

@@ -655,6 +655,83 @@ def test_fa_forward_stats_equal_plain_on_card(dev, B, H, Hkv, S, T, D, window,
     assert bool((want[0][dead] == torch.tensor(fa.NEG2, dtype=torch.float32)).all())
 
 
+# D = 224 (Zamba2-7B's shared attention; bf16 only): 64-row kv tiles, the
+# split dK/dV block; the scale Zamba2 uses, (D/2)^-0.5, and the default
+FA224_EDGES = [
+    (1, 2, 1, 129, 200, None, 0, True, 112 ** -0.5),
+    (2, 4, 4, 256, 256, None, 0, True, None),
+    (1, 4, 2, 200, 200, 48, 0, True, 112 ** -0.5),
+    (1, 2, 1, 77, 300, None, 223, True, 112 ** -0.5),
+    (1, 2, 2, 100, 333, None, 0, False, 112 ** -0.5),
+    (1, 2, 2, 70, 70, None, -3, True, 112 ** -0.5),
+    (1, 32, 32, 4096, 4096, None, 0, True, 112 ** -0.5),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,window,q_offset,causal,scale", FA224_EDGES)
+def test_fa224_forward_and_stats_equal_plain_on_card(dev, B, H, Hkv, S, T, window,
+                                                     q_offset, causal, scale):
+    """At D = 224 the bf16 forward kernel, with and without the
+    statistics, against fa_plain and fa_stats_plain over its 64-key tiles
+    (kv_tile), with the scale given: the output within the forward's
+    2e-2 + 2e-2·|plain|, the two launches equal bit for bit, the
+    statistics within 1e-5 + 1e-5·|plain|."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D = 224
+    assert fa.kv_tile(torch.bfloat16, D) == 64
+    q, k, v, _ = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, S, T, D,
+                             S * 19 + T + D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    before = fa.launch_count()
+    o, stats = fa.fa_forward_with_stats(q, k, v, **kw)
+    o_inference = fa.flash_attention(q, k, v, **kw)
+    assert fa.launch_count() == before + 2
+    want = fa.fa_stats_plain(q, k, kv_tile=64, **kw)
+    o_plain = fa.fa_plain(q, k, v, kv_tile=64, **kw)
+    torch.cuda.synchronize()
+    tol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_plain.float(), atol=tol, rtol=tol)
+    assert torch.equal(o, o_inference)
+    torch.testing.assert_close(stats, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,window,q_offset,causal,scale", FA224_EDGES)
+def test_fa224_backward_equals_plain_on_card(dev, B, H, Hkv, S, T, window,
+                                             q_offset, causal, scale):
+    """At D = 224 dq, dk, dv of the backward kernels (dK and dV from the
+    two warpgroups of a split block) against fa_backward_plain on the
+    kernel forward's output and statistics, within 2e-2 + 2e-2·|plain|,
+    in the inputs' dtypes and layouts; through autograd the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D = 224
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, S, T, D,
+                              S * 23 + T + D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    o, stats = fa.fa_forward_with_stats(q, k, v, **kw)
+    before = fa.bwd_launch_count()
+    got = fa.fa_backward(q, k, v, o, do, stats=stats, **kw)
+    assert fa.bwd_launch_count() == before + 1
+    want = fa.fa_backward_plain(q, k, v, o, do, kv_tile=64, **kw)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, **kw).backward(do)
+    torch.cuda.synchronize()
+    tol = FA_TOL[torch.bfloat16]
+    for g, w, x, t in zip(got, want, (q, k, v), leaves):
+        assert g.dtype == x.dtype and g.stride() == x.stride()
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert torch.equal(t.grad, g)
+
+
+def test_fa224_refuses_float32_on_card(dev):
+    """D = 224 has bfloat16 kernels only: float32 inputs are refused."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 2, 64, 224), device=dev)
+    with pytest.raises(ValueError, match="head dim 224"):
+        fa.flash_attention(q, q, q)
+
+
 def test_fa_forward_without_grad_writes_no_stats_on_card(dev, monkeypatch):
     """Without autograd the forward launches once with no statistics
     buffer, as before the backward read them, and its output equals the
@@ -663,9 +740,9 @@ def test_fa_forward_without_grad_writes_no_stats_on_card(dev, monkeypatch):
     calls = []
     launch = fa._fa_launch
 
-    def spy(q, k, v, c, w, o, stats=None):
+    def spy(q, k, v, c, w, o, stats=None, **kw):
         calls.append(stats)
-        return launch(q, k, v, c, w, o, stats=stats)
+        return launch(q, k, v, c, w, o, stats=stats, **kw)
 
     monkeypatch.setattr(fa, "_fa_launch", spy)
     q, k, v, _ = _bwd_inputs(dev, torch.bfloat16, 2, 8, 2, 130, 130, 96, 11)

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "repro_torch.configs", "repro_torch.models", "repro_torch.models.config",
     "repro_torch.models.layers", "repro_torch.models.attention",
     "repro_torch.models.ssm", "repro_torch.models.model",
+    "repro_torch.models.zamba2",
     "repro_torch.launch.serve", "repro_torch.launch.steps",
     "repro_torch.launch.train", "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.schedule", "repro_torch.optim.compression",
