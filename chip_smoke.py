@@ -45,7 +45,7 @@ kernel launch counts set to 0 just before it and read just after:
 
 Phases, each on lines of its own; any failed check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA sources in ``src/repro_torch/kernels/csrc``, one
+  2. build the six CUDA sources in ``src/repro_torch/kernels/csrc``, one
      nvcc each, all started together;
   3. SW kernel == plain PyTorch version on the card, exactly, on many shapes;
   4. the SW main path: a 4096-subject database through ``TaskFarm`` and
@@ -66,7 +66,11 @@ Phases, each on lines of its own; any failed check exits non-zero:
   8. FA and SSD kernel, plain, bound and library times at the main path's
      shapes (FA also at every shape of phase 9's prefills), the FA
      kernel's TFLOP/s and share of its bound, and the SSD scan's time
-     split by its five passes (torch.profiler);
+     split by its five passes (torch.profiler); the Mamba2 mixer's
+     gated-norm kernels against their plain versions and timed at
+     zamba2-train-4k's shape, then one Zamba2-7B train step at full width
+     over its first 12 layers with remat, which must launch them 24
+     forward and 12 backward;
   9. the moe, vlm and audio families: per model, prefill (FA launches
      16, 25 and 48; SSD and SW none), tokens/s, the prefill's device time
      by part (expert GEMMs, MoE dispatch, FA, the rest), serving (Mixtral)
@@ -624,7 +628,7 @@ def phase_chunked(dev, sw, ops, core, runs, db, queries):
     counts = read_counts()                        # --- end of window ---
     n_small = len(runs) * len(small)
     expected = n_small + sum(len(big[c]) for _, _, c in grid)
-    check(counts == {"sw": expected, "fa": 0, "ssd": 0},
+    check(counts == {"sw": expected, "fa": 0, "ssd": 0, "gated_norm": 0},
           f"chunked path launched {counts}, expected sw {expected}")
     print(f"chunked search of the {len(db)}-subject database in chunks of "
           f"{SMALL_CHUNK}: equal to the one-subject farm's scores in all "
@@ -749,9 +753,10 @@ def phase_timing(dev, sw, ops):
 
 def _counters():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gated_norm as gn
     from repro_torch.kernels import smith_waterman as sw
     from repro_torch.kernels import ssd_scan as ssd
-    return {"sw": sw, "fa": fa, "ssd": ssd}
+    return {"sw": sw, "fa": fa, "ssd": ssd, "gated_norm": gn}
 
 
 def reset_counts():
@@ -1170,7 +1175,8 @@ def phase_model_path(dev):
         bf16_logits = prefill(params, prompt, cfg)[0]
     del params
     torch.cuda.empty_cache()
-    consistency(dev, cfg, prompt, bf16_logits, {"sw": 0, "fa": g, "ssd": g * inner})
+    consistency(dev, cfg, prompt, bf16_logits,
+                {"sw": 0, "fa": g, "ssd": g * inner, "gated_norm": 0})
     return c1, {"prefill_ms": ms3, "first_prefill_ms": ms1}
 
 
@@ -1327,6 +1333,151 @@ def fa224_timing(dev, fa):
     del q, k, v, do, o, stats
     torch.cuda.empty_cache()
     return rows
+
+
+GN_SHAPE = (8, 4096, 112, 64, 2, 7424)   # zamba2-train-4k: B, T, H, P, G, xBC's width
+GN_SOURCE = "src/repro_torch/kernels/csrc/gated_norm.cu"
+
+
+def gated_norm_timing(dev, gn):
+    """The Mamba2 mixer's gated-norm kernels (Zamba2-7B's epilogue after the
+    SSD; x a slice of xBC, bf16 x, z and out) at zamba2-train-4k's shape.
+    First one sequence against the plain versions: the forward's output
+    within one bf16 spacing, the backward's dy, dx, dz within 1e-5 of
+    their largest entry and dD, dgnorm within 1e-4, each beside one
+    storage spacing (``tests/test_torch_gpu.py``'s ``_gn_close``).  Then
+    each timed at the whole shape against its bound (bytes: the forward
+    reads y f32, x and z and writes out and r; the backward reads do, y, x,
+    z and r and writes dy f32, dx, dz, dD and dgnorm, once each, at 3.35
+    TB/s), and the plain versions: ``gated_rmsnorm_plain`` and
+    ``gated_rmsnorm_backward_plain``, and the eager expression's autograd
+    backward, the path the kernels replace.  No PyTorch call computes the
+    epilogue."""
+    B, T, H, P, G, width = GN_SHAPE
+    di = H * P
+    g = torch.Generator(device=dev).manual_seed(33)
+    y = torch.randn((B, T, H, P), generator=g, device=dev)
+    xbc = torch.randn((B, T, width), generator=g, device=dev).to(torch.bfloat16)
+    x = xbc[..., :di].reshape(B, T, H, P)
+    z, do = ((torch.randn((B, T, di), generator=g, device=dev) * s).to(torch.bfloat16)
+             for s in (2.0, 1.0))
+    D = torch.randn((H,), generator=g, device=dev)
+    gnorm = 1 + 0.1 * torch.randn((di,), generator=g, device=dev)
+    eps = 1e-5
+    one = [t[:1] for t in (y, x, z, do)]
+    out1, r1 = gn.gated_rmsnorm_forward(one[0], one[1], one[2], D, gnorm, G, eps)
+    got = gn.gated_rmsnorm_backward(one[3], one[0], one[1], one[2], D, gnorm, r1, G)
+    want_out = gn.gated_rmsnorm_plain(one[0], one[1], one[2], D, gnorm, G, eps)
+    want = gn.gated_rmsnorm_backward_plain(one[0], one[1], one[2], D, gnorm, G, eps,
+                                           one[3])
+    torch.cuda.synchronize()
+
+    def close(u, w, tol):
+        spacing = 2.0 ** -7 if u.dtype == torch.bfloat16 else 2.0 ** -23
+        u, w = u.float(), w.float()
+        rel = float(((u - w).abs() - spacing * w.abs()).clamp_min(0).max()
+                    / w.abs().max())
+        return rel, rel <= tol
+
+    errs = {"out": close(out1, want_out, 0.0)}
+    errs.update({n: close(u, w, tol) for n, u, w, tol in zip(
+        ("dy", "dx", "dz", "dD", "dgnorm"), got, want, (1e-5, 1e-5, 1e-5, 1e-4, 1e-4))})
+    check(all(ok for _, ok in errs.values()),
+          f"gated norm != plain at (1, {T}, {H}, {P}), G={G}: {errs}")
+    del out1, r1, got, want_out, want
+    out, r = gn.gated_rmsnorm_forward(y, x, z, D, gnorm, G, eps)
+    fwd = cuda_ms(lambda: gn.gated_rmsnorm_forward(y, x, z, D, gnorm, G, eps),
+                  iters=20, warmup=3)
+    bwd = cuda_ms(lambda: gn.gated_rmsnorm_backward(do, y, x, z, D, gnorm, r, G),
+                  iters=20, warmup=3)
+    plain_fwd = cuda_ms(lambda: gn.gated_rmsnorm_plain(y, x, z, D, gnorm, G, eps),
+                        iters=3, warmup=1)
+    plain_bwd = cuda_ms(lambda: gn.gated_rmsnorm_backward_plain(
+        y, x, z, D, gnorm, G, eps, do), iters=3, warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (y, z, D, gnorm)]
+    xl = x.detach().clone().requires_grad_()
+    eager_bwd, reps = 0.0, 3
+    for i in range(reps + 1):
+        o = gn.gated_rmsnorm_plain(leaves[0], xl, leaves[1], leaves[2], leaves[3], G, eps)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        o.backward(do)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:                          # the first is a warm-up
+            eager_bwd += start.elapsed_time(stop) / reps
+        for t in leaves + [xl]:
+            t.grad = None
+    del o, leaves, xl
+    n, rows_g = B * T * di, B * T * G
+    shape = f"B={B} T={T} H={H} P={P} G={G}, x a slice of a {width}-wide xBC, bf16"
+    rows = {}
+    for name, ms, plain, nbytes in (
+            ("forward", fwd, plain_fwd, n * (4 + 2 + 2 + 2) + rows_g * 4),
+            ("backward", bwd, plain_bwd, n * (2 + 4 + 2 + 2 + 4 + 2 + 2) + rows_g * 4
+             + (di + H) * 4)):
+        bound = nbytes / PEAK_BYTES * 1e3
+        rows[name] = dict(path=f"zamba2-7b train, gated norm {name}", shape=shape,
+                          ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                          library_ms=None, err=max(e for e, _ in errs.values()))
+        print(f"timing gated norm {name} {shape}: kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s), "
+              f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, {bound / ms:.4f} of the "
+              f"bound; plain {plain:.4f} ms"
+              + (f"; the eager expression's autograd backward {eager_bwd:.4f} ms"
+                 if name == "backward" else "")
+              + "; library: none (no PyTorch call computes the epilogue)", flush=True)
+    print(f"gated norm kernels vs plain at (1, {T}, {H}, {P}), G={G}: "
+          + ", ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+          + " (beyond one storage spacing, of the largest entry)", flush=True)
+    rows["eager_bwd_ms"] = eager_bwd
+    del y, xbc, x, z, do, out, r
+    torch.cuda.empty_cache()
+    return rows
+
+
+GN_TRAIN_LAYERS = 12    # Zamba2-7B's first 12 layers: hybrid 6 and 11, both memory blocks
+GN_TRAIN_SEQ = 4096
+
+
+def gated_norm_main_path(dev):
+    """One Zamba2-7B train step at its published widths, cut to its first
+    GN_TRAIN_LAYERS layers, through ``launch.train.train`` (bf16 parameters,
+    f32 moments, remat, 1 x GN_TRAIN_SEQ tokens from SyntheticLM seed 0):
+    the zamba2 family's path, which zamba2-train-4k runs at 36 layers and
+    8 sequences.  Every mixer must launch the gated-norm forward kernel
+    twice (the forward and the remat recompute) and the backward once:
+    2 x n_layers and n_layers, counted from 0 at the step's start."""
+    from repro_torch.configs.zamba2_7b import CONFIG
+    from repro_torch.kernels import gated_norm as gn
+    from repro_torch.launch.train import train
+    cfg = CONFIG.replace(n_layers=GN_TRAIN_LAYERS, remat=True, loss_chunk=1024)
+    L = cfg.n_layers
+    free_device_memory()
+    t0 = time.perf_counter()
+    reset_counts()                                   # --- counted window ---
+    state, losses = train(cfg, steps=1, batch=1, seq=GN_TRAIN_SEQ, ckpt_dir=None,
+                          seed=0, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()                           # --- end of window ---
+    counts["gated_norm_bwd"] = gn.bwd_launch_count()
+    wall = time.perf_counter() - t0
+    check((counts["gated_norm"], counts["gated_norm_bwd"]) == (2 * L, L),
+          f"zamba2-7b train step ({L} layers) launched gated norm "
+          f"{counts['gated_norm']} forward, {counts['gated_norm_bwd']} backward; "
+          f"expected {2 * L} and {L}")
+    check(all(np.isfinite(losses)), f"zamba2-7b train step loss {losses} not finite")
+    print(f"zamba2-7b train step at full width, {L} layers "
+          f"({cfg.layer_kinds().count('hybrid')} hybrid), remat, 1 x {GN_TRAIN_SEQ} "
+          f"tokens, through launch.train.train: gated norm {counts['gated_norm']} "
+          f"forward and {counts['gated_norm_bwd']} backward launches (2 x {L} and "
+          f"{L}); all launches {counts}; loss {losses[0]:.6f}; {wall:.1f} s with "
+          f"the initialisation", flush=True)
+    del state
+    free_device_memory()
+    return {"forward": counts["gated_norm"], "backward": counts["gated_norm_bwd"],
+            "n_layers": L}
 
 
 def phase_model_timing(dev, fa, ssd):
@@ -1646,7 +1797,7 @@ def family_main_path(dev, arch, run):
     with torch.no_grad():
         (logits, cache), ms1 = _events_ms(lambda: prefill(params, batch, cfg))
     counts = read_counts()                           # --- end of window ---
-    check(counts == {"sw": 0, "fa": cfg.n_layers, "ssd": 0},
+    check(counts == {"sw": 0, "fa": cfg.n_layers, "ssd": 0, "gated_norm": 0},
           f"{arch} prefill launched {counts}, expected fa {cfg.n_layers}")
     check(tuple(logits.shape) == want and bool(torch.isfinite(logits).all()),
           f"{arch} prefill logits {tuple(logits.shape)} not {want} or not finite")
@@ -1739,7 +1890,7 @@ def family_main_path(dev, arch, run):
     del params
     torch.cuda.empty_cache()
     consistency(dev, cfg_c, prompt, bf16_logits,
-                {"sw": 0, "fa": cfg_c.n_layers, "ssd": 0})
+                {"sw": 0, "fa": cfg_c.n_layers, "ssd": 0, "gated_norm": 0})
     torch.cuda.empty_cache()
     return result
 
@@ -2515,7 +2666,8 @@ def train_main_path(dev, arch, per_step):
     counts = read_counts()                           # --- end of window ---
     counts.update(fa_bwd=fa.bwd_launch_count(), ssd_bwd=ssd.bwd_launch_count())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    want = {"sw": 0, **{k: v * TRAIN_STEPS for k, v in per_step.items()}}
+    want = {"sw": 0, "gated_norm": 0,
+            **{k: v * TRAIN_STEPS for k, v in per_step.items()}}
     check(counts == want, f"train {arch} launched {counts}, expected {want}")
     check(len(record) == TRAIN_STEPS and all(
         all(r[k] == v for k, v in per_step.items()) for r in record),
@@ -2803,7 +2955,7 @@ def keyed_aggregation(dev, sw, ops, core, queries, smi_line):
         runs[("procs", fold)] = dict(out=out, wall=time.perf_counter() - t0,
                                      ready=ready)
     counts = read_counts()                        # --- end of window ---
-    check(counts == {"sw": len(chunks), "fa": 0, "ssd": 0},
+    check(counts == {"sw": len(chunks), "fa": 0, "ssd": 0, "gated_norm": 0},
           f"keyed path launched {counts}, expected sw {len(chunks)}")
 
     allv = torch.cat(stream, dim=1)
@@ -3035,7 +3187,7 @@ def tuned_search(dev, sw, core, ctx, main, smi_line):
     second, wall2 = search(tp)
     counts = read_counts()                        # --- end of window ---
     n = len(chunks)
-    check(counts == {"sw": 2 * n, "fa": 0, "ssd": 0},
+    check(counts == {"sw": 2 * n, "fa": 0, "ssd": 0, "gated_norm": 0},
           f"tuned search launched {counts}, expected sw {2 * n}")
     check(torch.equal(first, main["scores"]) and torch.equal(second, first),
           "tuned search: scores differ from phase 4's chunked search")
@@ -3210,7 +3362,7 @@ def device_backend(dev, sw, ops, core, ctx, runs, db, queries):
     out = farm(rows_in)
     wall = time.perf_counter() - t0
     counts = read_counts()                        # --- end of window ---
-    check(counts == {"sw": 1, "fa": 0, "ssd": 0},
+    check(counts == {"sw": 1, "fa": 0, "ssd": 0, "gated_norm": 0},
           f"device SW farm launched {counts}, expected sw 1")
     got = [float(r[0]) for r in out]
     check(got == runs[(KEYED_Q, REGIMES[0][1])]["scores"],
@@ -4653,6 +4805,7 @@ def main():
     from repro_torch import core
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gated_norm as gn
     from repro_torch.kernels import smith_waterman as sw
     from repro_torch.kernels import ssd_scan as ssd
     phase_build(_build)
@@ -4669,6 +4822,8 @@ def main():
     model_launches, _ = phase_model_path(dev)
     model_rows = phase_model_timing(dev, fa, ssd)
     model_rows["fa224"] = fa224_timing(dev, fa)
+    model_rows["gated_norm"] = gated_norm_timing(dev, gn)
+    gn_path = gated_norm_main_path(dev)
     families = phase_families(dev)
     training = phase_training(dev, fa, ssd)
     keyed_launches, keyed_ctx = phase_keyed(dev, sw, ops, core, queries,
@@ -4834,6 +4989,33 @@ def main():
         "split_ms": r["split"], "tflops": r["tflops"],
         "kernel_tflops": r["kernel_tflops"],
         "forward_with_scratch_ms": r["forward_with_scratch_ms"],
+    })
+    r = model_rows["gated_norm"]
+    kernels.append({
+        "name": "gated_norm", "route": "cuda", "source": GN_SOURCE,
+        "replaces": None,
+        "replaces_what": "none: the JAX package has no Zamba2 at its published "
+                         "widths; the eager f32 epilogue of models/zamba2.py's "
+                         "_mixer (gated_rmsnorm_plain)",
+        "launches": gn_path["forward"] + gn_path["backward"],
+        "launches_by_path": {"zamba2-7b train, forward": gn_path["forward"],
+                             "zamba2-7b train, backward": gn_path["backward"]},
+        "launches_per": f"one zamba2-7b train step at full width, its first "
+                        f"{gn_path['n_layers']} layers, remat: 2 x n_layers "
+                        f"forward, n_layers backward (zamba2-train-4k's 36 "
+                        f"layers: 72 and 36)",
+        "kernels": "gn_fwd_kernel; backward: gn_bwd_kernel, gn_sum_kernel",
+        "max_abs_err": r["forward"]["err"],
+        "max_abs_err_is": "the largest gap beyond one storage spacing, of the "
+                          "largest entry, over out, dy, dx, dz, dD, dgnorm",
+        "ms": r["forward"]["ms"], "plain_ms": r["forward"]["plain_ms"],
+        "bound_ms": r["forward"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no PyTorch call computes the epilogue",
+        "shape": r["forward"]["shape"], "eager_autograd_backward_ms": r["eager_bwd_ms"],
+        "shapes": [{k: x[k] for k in ("path", "shape", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+                   for x in (r["forward"], r["backward"])],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     signal.alarm(0)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xptxas", "-v"]
 
 SOURCES = ("smith_waterman", "flash_attention", "flash_attention_bwd",
-           "ssd_scan", "ssd_scan_bwd")
+           "ssd_scan", "ssd_scan_bwd", "gated_norm")
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOCK = threading.Lock()                      # guards _NAME_LOCKS

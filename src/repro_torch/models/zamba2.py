@@ -22,13 +22,15 @@ the residual stream:
   2·G·N) and dt (H); a causal depthwise conv of width ``ssm_conv`` with
   bias, then SiLU; the SSD over H heads of P, state N, G groups of B/C
   (head h reads group h // (H / G)), the ``D`` skip; ``y ⊙ silu(z)``, an
-  RMSNorm over each group of d_inner / G channels, the out-projection.
+  RMSNorm over each group of d_inner / G channels (these three are
+  ``kernels.gated_norm.gated_rmsnorm``), the out-projection.
 * The final RMSNorm and an output head tied to the embedding.
 
 On the card the shared attention runs the flash-attention kernels at
 D = 224 and every mixer the SSD kernels, one ``ssd_scan`` call per B/C
 group (the kernels take one group; the heads of a group are contiguous,
-so this is the same arithmetic).  With ``cfg.remat`` each Mamba layer and
+so this is the same arithmetic), then the gated-norm kernel on the SSD's
+output, forward and backward.  With ``cfg.remat`` each Mamba layer and
 each shared-block application is recomputed in the backward
 (``torch.utils.checkpoint``): the stash is each layer's input and each
 hybrid layer's ``T_l``.  Profiler ranges ``train.mamba`` (each mixer,
@@ -49,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.gated_norm import gated_rmsnorm
 from .attention import attention
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, embed_init, init_device, rms_norm
@@ -229,10 +232,7 @@ def _mixer(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: Zamba2Config
     xh = x.reshape(b, t, hh, P)
     y = grouped_ssd(xh, dt, A, Bm.reshape(b, t, g, n), Cm.reshape(b, t, g, n),
                     cfg.ssm_chunk, getattr(torch, cfg.ssm_compute_dtype))
-    y = y + xh.float() * p["D"][:, None]                   # (B,T,H,P) f32
-    y = y.reshape(b, t, g, di // g) * F.silu(z.float()).reshape(b, t, g, di // g)
-    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
-    y = (y.reshape(b, t, di) * p["gnorm"]).to(u.dtype)
+    y = gated_rmsnorm(y, xh, z, p["D"], p["gnorm"], g, cfg.norm_eps)
     return y @ p["w_out"]
 
 

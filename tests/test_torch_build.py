@@ -25,6 +25,7 @@ def test_sources_list_the_headers_they_include():
         "flash_attention_bwd": ["flash_attention_bwd.cu", "fa_hopper.cuh"],
         "ssd_scan": ["ssd_scan.cu", "ssd_tiles.cuh"],
         "ssd_scan_bwd": ["ssd_scan_bwd.cu", "ssd_mma.cuh", "ssd_tiles.cuh"],
+        "gated_norm": ["gated_norm.cu"],
     }
 
 

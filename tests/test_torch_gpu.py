@@ -9,7 +9,9 @@ their plain versions, on their edge cases; training steps of every family
 through the kernels, forward and backward, against the CPU;
 the Zamba2 smoke prefill launching both; the MoE grouped dispatch against
 its dense oracle, the smoke prefill of the moe, vlm and audio families
-through the FA kernel, CUDA tensors crossing a procs farm on the
+through the FA kernel, the Mamba2 mixer's gated-norm kernels (Zamba2)
+against their plain versions and in the zamba2 family's train step, CUDA
+tensors crossing a procs farm on the
 host (the shared-memory ring's tensor edge), and the device backend
 ``lower(.., "mesh")`` on the card: a Farm, a Feedback and a keyed
 reduction equal to the threads backend, and a device farm of SW scores
@@ -848,6 +850,148 @@ def test_ssd_backward_is_deterministic_on_card(dev):
             torch.cuda.synchronize()
             for a, b_, leaf in zip(one, two, leaves):
                 assert torch.equal(a, b_) and torch.equal(a, leaf.grad)
+
+
+# -- the Mamba2 mixer's gated-norm epilogue (Zamba2) ------------------------------
+# (b, T, H, P, G, pad): x a slice of a (b, T, H·P + pad) xBC.  One sequence at
+# zamba2-train-4k's shape (xBC 7424 wide); T = 333, not a multiple of either
+# strip, with G = 1; two sequences of 77 with 3 groups and xBC rows of 52
+GN_CASES = [(1, 4096, 112, 64, 2, 256), (1, 333, 7, 40, 1, 0), (2, 77, 6, 8, 3, 4)]
+
+
+def _gn_inputs(dev, b, T, H, P, pad, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    di = H * P
+    y = torch.randn((b, T, H, P), generator=g, device=dev)
+    xbc = torch.randn((b, T, di + pad), generator=g, device=dev).to(dtype)
+    x = xbc[..., :di].reshape(b, T, H, P)
+    z = (torch.randn((b, T, di), generator=g, device=dev) * 2).to(dtype)
+    D = torch.randn((H,), generator=g, device=dev)
+    gnorm = torch.randn((di,), generator=g, device=dev)
+    do = torch.randn((b, T, di), generator=g, device=dev).to(dtype)
+    return y, x, z, D, gnorm, do
+
+
+def _gn_close(got, want, tol):
+    """|got − want| <= tol·max|want| + one spacing of got's dtype's
+    mantissa (2^-7 for bf16, 2^-23 for f32) of |want|: the kernel and the
+    plain version compute the same f32 values but for the order of their
+    sums, which can round a stored value to its neighbour."""
+    spacing = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -23
+    got, want = got.float(), want.float()
+    bound = tol * float(want.abs().max()) + spacing * want.abs()
+    return bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("b,T,H,P,G,pad", GN_CASES)
+def test_gated_norm_kernels_equal_plain_on_card(dev, b, T, H, P, G, pad):
+    """The forward kernel against ``gated_rmsnorm_plain`` (out in bf16; r
+    within 1e-5, a sum of up to 3584 squares in another order), the backward kernels against
+    ``gated_rmsnorm_backward_plain`` (dy, dx, dz within 1e-5 of their
+    largest entry; dD and dgnorm, sums over every token, within 1e-4),
+    each beside one storage spacing; a second call of each gives the same
+    bits; each call adds one to its count."""
+    from repro_torch.kernels import gated_norm as gn
+    y, x, z, D, gnorm, do = _gn_inputs(dev, b, T, H, P, pad)
+    f0, b0 = gn.launch_count(), gn.bwd_launch_count()
+    out, r = gn.gated_rmsnorm_forward(y, x, z, D, gnorm, G, 1e-5)
+    out2, r2 = gn.gated_rmsnorm_forward(y, x, z, D, gnorm, G, 1e-5)
+    got = gn.gated_rmsnorm_backward(do, y, x, z, D, gnorm, r, G)
+    got2 = gn.gated_rmsnorm_backward(do, y, x, z, D, gnorm, r, G)
+    torch.cuda.synchronize()
+    assert (gn.launch_count() - f0, gn.bwd_launch_count() - b0) == (2, 2)
+    assert torch.equal(out, out2) and torch.equal(r, r2)
+    assert all(torch.equal(u, v) for u, v in zip(got, got2))
+    want = gn.gated_rmsnorm_plain(y, x, z, D, gnorm, G, 1e-5)
+    assert out.dtype == torch.bfloat16 and _gn_close(out, want, 0.0)[0]
+    v = ((y + x.float() * D[:, None]) * torch.nn.functional.silu(z.float()).reshape(
+        y.shape)).reshape(b, T, G, -1)
+    torch.testing.assert_close(r, torch.rsqrt((v * v).mean(-1) + 1e-5), rtol=1e-5, atol=0)
+    want = gn.gated_rmsnorm_backward_plain(y, x, z, D, gnorm, G, 1e-5, do)
+    for name, u, w, tol in zip(("dy", "dx", "dz", "dD", "dgnorm"), got, want,
+                               (1e-5, 1e-5, 1e-5, 1e-4, 1e-4)):
+        assert u.dtype == w.dtype and u.shape == w.shape, name
+        ok, err = _gn_close(u, w, tol)
+        assert ok, (name, err)
+
+
+def test_gated_norm_autograd_runs_both_kernels_on_card(dev):
+    """Through ``gated_rmsnorm`` with inputs that require grad: one forward
+    and one backward launch, and the direct calls' bits, x's gradient on
+    its slice of xBC."""
+    from repro_torch.kernels import gated_norm as gn
+    b, T, H, P, G, pad = 2, 300, 8, 64, 2, 128
+    y, x, z, D, gnorm, do = _gn_inputs(dev, b, T, H, P, pad, seed=3)
+    xbc = x.reshape(b, T, H * P)
+    xbc = torch.cat([xbc, torch.zeros_like(xbc[..., :pad])], -1).requires_grad_()
+    leaves = [t.detach().clone().requires_grad_() for t in (y, z, D, gnorm)]
+    xs = xbc[..., :H * P].reshape(b, T, H, P)
+    f0, b0 = gn.launch_count(), gn.bwd_launch_count()
+    out = gn.gated_rmsnorm(leaves[0], xs, leaves[1], leaves[2], leaves[3], G, 1e-5)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (gn.launch_count() - f0, gn.bwd_launch_count() - b0) == (1, 1)
+    want_out, r = gn.gated_rmsnorm_forward(y, xs.detach(), z, D, gnorm, G, 1e-5)
+    want = gn.gated_rmsnorm_backward(do, y, xs.detach(), z, D, gnorm, r, G)
+    assert torch.equal(out, want_out)
+    assert torch.equal(xbc.grad[..., :H * P].reshape(x.shape), want[1])
+    assert not xbc.grad[..., H * P:].any()
+    for u, w in zip([leaves[0].grad, *(t.grad for t in leaves[1:])], [want[0], *want[2:]]):
+        assert torch.equal(u, w)
+
+
+def test_gated_norm_refuses_what_the_kernel_does_not_take_on_card(dev):
+    from repro_torch.kernels import gated_norm as gn
+    y, x, z, D, gnorm, _ = _gn_inputs(dev, 1, 8, 4, 8, 0)
+    with pytest.raises(TypeError, match="float32"):
+        gn.gated_rmsnorm(y.to(torch.bfloat16), x, z, D, gnorm, 2, 1e-5)
+    with pytest.raises(TypeError, match="share"):
+        gn.gated_rmsnorm(y, x, z.float(), D, gnorm, 2, 1e-5)
+    with pytest.raises(ValueError, match="contiguously"):
+        gn.gated_rmsnorm(y, x.transpose(2, 3).contiguous().transpose(2, 3), z, D,
+                         gnorm, 2, 1e-5)
+    odd = _gn_inputs(dev, 1, 8, 4, 6, 0)                     # P not a multiple of 4
+    with pytest.raises(ValueError, match="4 channels"):
+        gn.gated_rmsnorm(*odd[:5], 2, 1e-5)
+    xbc = torch.zeros((1, 8, 33), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="4 channels"):     # rows off alignment
+        gn.gated_rmsnorm(y, xbc[..., 1:].reshape(1, 8, 4, 8), z, D, gnorm, 2, 1e-5)
+    big = _gn_inputs(dev, 1, 2, 64, 132, 0)                  # 8448 channels a group
+    with pytest.raises(ValueError, match="exceeds"):
+        gn.gated_rmsnorm(*big[:5], 1, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_smoke_train_step_runs_the_gated_norm_kernels(dev, dtype):
+    """One make_train_step of the zamba2 family's smoke model with remat on
+    the card: 2 x n_layers gated-norm forward launches (the forward and the
+    remat recompute) and n_layers backward; in f32 the loss within 1e-4
+    and every gradient within 1e-4 of its largest |g| against the plain
+    path on the CPU (the CPU parity tests' limit), in bf16 finite metrics."""
+    from repro_torch.configs.zamba2_7b import CONFIG
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import gated_norm as gn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CONFIG.smoke().replace(dtype=dtype, remat=True)
+    params = init_params(cfg, 0, device="cpu")
+    cpu_batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg, 2, 32, seed=1)(0).items()}
+    dev_params, dev_batch = _to(params, dev), _to(cpu_batch, dev)
+    if dtype == "float32":
+        want_loss, want = _grad_leaves(params, cpu_batch, cfg)
+        got_loss, got = _grad_leaves(dev_params, dev_batch, cfg)
+        assert abs(got_loss - want_loss) <= 1e-4 * max(1.0, abs(want_loss))
+        for g, w in zip(got, want):
+            assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=1)
+    f0, b0 = gn.launch_count(), gn.bwd_launch_count()
+    _, _, m = step(dev_params, adamw_init(dev_params), dev_batch)
+    torch.cuda.synchronize()
+    assert (gn.launch_count() - f0, gn.bwd_launch_count() - b0) == (2 * cfg.n_layers,
+                                                                     cfg.n_layers)
+    assert all(torch.isfinite(m[k]).all() for k in ("loss", "ce", "grad_norm"))
 
 
 # -- training on the card -----------------------------------------------------

@@ -26,7 +26,8 @@ PORT_MODULES = [
     "repro_torch.models.moe",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.smith_waterman", "repro_torch.kernels.flash_attention",
-    "repro_torch.kernels.ssd_scan", "repro_torch.convert",
+    "repro_torch.kernels.ssd_scan", "repro_torch.kernels.gated_norm",
+    "repro_torch.convert",
     "repro_torch.configs", "repro_torch.models", "repro_torch.models.config",
     "repro_torch.models.layers", "repro_torch.models.attention",
     "repro_torch.models.ssm", "repro_torch.models.model",
