@@ -751,21 +751,16 @@ def phase_timing(dev, sw, ops):
     return rows
 
 
-def _counters():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gated_norm as gn
-    from repro_torch.kernels import smith_waterman as sw
-    from repro_torch.kernels import ssd_scan as ssd
-    return {"sw": sw, "fa": fa, "ssd": ssd, "gated_norm": gn}
-
-
 def reset_counts():
-    for mod in _counters().values():
-        mod.reset_launch_count()
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
 
 
 def read_counts():
-    return {name: mod.launch_count() for name, mod in _counters().items()}
+    """Forward launches by counter: sw, fa, ssd, gated_norm."""
+    from repro_torch.kernels import _build
+    return {k: v for k, v in _build.launch_counts().items()
+            if not k.endswith("_bwd")}
 
 
 def within(got, want, tol):

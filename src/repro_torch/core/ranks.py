@@ -46,7 +46,6 @@ import multiprocessing as mp
 import os
 import pickle
 import shutil
-import sys
 import tempfile
 import time
 import traceback
@@ -57,25 +56,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..kernels import _build
 from .skeleton import LoweringError
 
 __all__ = ["TRANSPORTS", "RankPool", "RankContext", "Group", "card_count",
            "plan_ranks", "pool", "shutdown", "current", "simulated"]
 
 TRANSPORTS = ("nccl", "gloo")
-#: the kernel launch counters a rank reports after each job: name ->
-#: (module, counter function)
-_COUNTERS = {
-    "sw": ("repro_torch.kernels.smith_waterman", "launch_count"),
-    "fa": ("repro_torch.kernels.flash_attention", "launch_count"),
-    "fa_bwd": ("repro_torch.kernels.flash_attention", "bwd_launch_count"),
-    "ssd": ("repro_torch.kernels.ssd_scan", "launch_count"),
-    "ssd_bwd": ("repro_torch.kernels.ssd_scan", "bwd_launch_count"),
-}
-#: the CUDA sources a rank's paths launch (the sharded model's training
-#: too: the backward kernels), built in the caller first
-_PREBUILD = ("smith_waterman", "flash_attention", "flash_attention_bwd",
-             "ssd_scan", "ssd_scan_bwd")
 _GRACE_S = 10.0     # how long the other ranks may take to fail after one did
 _TIMEOUT_S = 600.0  # a job, or a collective inside one, that takes longer hung
 
@@ -254,16 +241,6 @@ def simulated(world: int, rank: int = 0, *, device: Any = "meta",
         dist.destroy_process_group()
 
 
-def _launch_counts() -> Dict[str, int]:
-    """This process's kernel launch counters (modules not yet imported
-    have launched nothing)."""
-    out = {}
-    for name, (module, fn) in _COUNTERS.items():
-        mod = sys.modules.get(module)
-        out[name] = getattr(mod, fn)() if mod is not None else 0
-    return out
-
-
 #: bytes a pipe message carries at most: a message goes as a count of
 #: frames, then the frames.  A receiver reads a whole message with one
 #: read call the size of the message, which some hosts serve very slowly
@@ -322,13 +299,13 @@ def _rank_main(rank: int, world: int, store: str, device: str,
             if msg is None:
                 break
             fn, args = msg
-            before = _launch_counts()
+            before = _build.launch_counts()
             ctx.staged = 0
             try:
                 out = fn(ctx, *args)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-                after = _launch_counts()
+                after = _build.launch_counts()
                 reply = ("ok", out, {k: after[k] - before[k] for k in after},
                          ctx.staged)
             except BaseException as e:  # reported to the caller, who raises
@@ -358,7 +335,7 @@ class RankPool:
                  transport: Optional[str] = None):
         self.devices, self.transport = plan_ranks(world, device, transport)
         self.world = world
-        self.launches: Dict[str, int] = {k: 0 for k in _COUNTERS}
+        self.launches: Dict[str, int] = dict.fromkeys(_build.LAUNCH_KEYS, 0)
         self.staged = 0
         self.ready_s: Optional[float] = None
         self._procs: List[Any] = []
@@ -377,8 +354,7 @@ class RankPool:
 
     def _start(self) -> None:
         if self.devices[0].startswith("cuda"):
-            from ..kernels import _build
-            _build.load_all(_PREBUILD)
+            _build.load_all()
         self._dir = tempfile.mkdtemp(prefix="repro-ranks-")
         store = os.path.join(self._dir, "store")
         ctx = mp.get_context("spawn")
@@ -401,7 +377,7 @@ class RankPool:
         self.ready_s = time.perf_counter() - t0
 
     def reset_counts(self) -> None:
-        self.launches = {k: 0 for k in _COUNTERS}
+        self.launches = dict.fromkeys(_build.LAUNCH_KEYS, 0)
         self.staged = 0
 
     def run(self, fn: Callable, *args: Any,

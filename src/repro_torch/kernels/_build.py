@@ -1,4 +1,7 @@
-"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA sources under ``csrc/`` with nvcc, load them with ctypes
+and count their launches: :data:`KERNELS` is the table of the sources, and
+of the launch counters (:data:`COUNTERS`) their wrappers tally in; a
+wrapper declares its C functions' signatures in a :class:`Library`.
 
 Each source has a plain C interface, so it compiles in seconds without
 PyTorch's headers.  The shared library goes into ``build/repro_torch/`` at
@@ -22,25 +25,98 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "load", "load_all",
-           "build_info", "compile_source", "ptxas_usage"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "KERNELS", "SOURCES", "COUNTERS",
+           "LAUNCH_KEYS", "Library", "launch_counts", "reset_launch_counts",
+           "load", "load_all", "build_info", "compile_source", "ptxas_usage"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
-
-SOURCES = ("smith_waterman", "flash_attention", "flash_attention_bwd",
-           "ssd_scan", "ssd_scan_bwd", "gated_norm")
-
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOCK = threading.Lock()                      # guards _NAME_LOCKS
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _INFO: Dict[str, Tuple[float, str]] = {}  # name -> (build seconds, nvcc log)
+
+
+class Kernel(NamedTuple):
+    """A row of :data:`KERNELS`."""
+
+    prefix: str             # of its C functions: <prefix>_error_string, ...
+    counter: str            # the launch counter its wrapper tallies in
+    keys: Tuple[str, ...]   # the counter's keys its launches tally
+    tma: bool               # a launch may return 1000 + a CUresult (fa_hopper.cuh)
+
+
+#: Every source under ``csrc/``.  A counter's key ``"bwd"`` tallies
+#: backward launches and every other key forward ones: Smith-Waterman's by
+#: the kernel that ran (``smith_waterman._sw_path``).
+KERNELS: Dict[str, Kernel] = {
+    "smith_waterman": Kernel("sw", "sw", ("warp", "strip", "block"), False),
+    "flash_attention": Kernel("fa", "fa", ("fwd",), True),
+    "flash_attention_bwd": Kernel("fa_bwd", "fa", ("bwd",), True),
+    "ssd_scan": Kernel("ssd", "ssd", ("fwd",), False),
+    "ssd_scan_bwd": Kernel("ssd_bwd", "ssd", ("bwd",), False),
+    "gated_norm": Kernel("gn", "gated_norm", ("fwd", "bwd"), False),
+}
+SOURCES = tuple(KERNELS)
+
+
+class LaunchCounter:
+    """One wrapper's kernel launches since the last reset, tallied by key
+    under a lock of its own (farm workers launch from several threads)."""
+
+    def __init__(self, keys: Tuple[str, ...]):
+        self.keys, self._lock = keys, threading.Lock()
+        self._n = dict.fromkeys(keys, 0)
+
+    def add(self, key: str) -> None:
+        with self._lock:
+            self._n[key] += 1
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+    def forward(self) -> int:
+        return sum(n for k, n in self.counts().items() if k != "bwd")
+
+    def backward(self) -> int:
+        return self.counts()["bwd"]
+
+    def reset(self) -> None:
+        """Set every key, forward and backward, to 0."""
+        with self._lock:
+            self._n = dict.fromkeys(self.keys, 0)
+
+
+#: one counter a wrapper, over the keys of its sources' rows
+COUNTERS: Dict[str, LaunchCounter] = {
+    c: LaunchCounter(sum((r.keys for r in KERNELS.values() if r.counter == c), ()))
+    for c in dict.fromkeys(r.counter for r in KERNELS.values())}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every counter at once, keyed by :data:`LAUNCH_KEYS`: ``sw``, ``fa``,
+    ``fa_bwd``, ``ssd``, ``ssd_bwd``, ``gated_norm``, ``gated_norm_bwd``."""
+    out = {}
+    for c, counter in COUNTERS.items():
+        out[c] = counter.forward()
+        if "bwd" in counter.keys:
+            out[c + "_bwd"] = counter.backward()
+    return out
+
+
+LAUNCH_KEYS = tuple(launch_counts())
+
+
+def reset_launch_counts() -> None:
+    for counter in COUNTERS.values():
+        counter.reset()
 
 
 def _nvcc() -> str:
@@ -117,6 +193,43 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = _build(name)
         return lib
+
+
+class Library:
+    """The C interface of the library built from ``csrc/<source>.cu``:
+    ``signatures`` maps each of its C functions to ``(restype, argtypes)``.
+    The library is built (or reused) and bound at the first launch, with
+    the ``<prefix>_error_string`` every source exports."""
+
+    def __init__(self, source: str, signatures: Dict[str, Tuple[Any, List[Any]]]):
+        self.source, self.row = source, KERNELS[source]
+        self.signatures = {**signatures, f"{self.row.prefix}_error_string":
+                           (ctypes.c_char_p, [ctypes.c_int])}
+        self.cdll: Optional[ctypes.CDLL] = None
+
+    def bind(self, cdll: ctypes.CDLL) -> ctypes.CDLL:
+        """``cdll`` (this source's library, or a variant of it built
+        elsewhere) with its functions' signatures declared."""
+        for fn, (restype, argtypes) in self.signatures.items():
+            getattr(cdll, fn).restype = restype
+            getattr(cdll, fn).argtypes = argtypes
+        return cdll
+
+    def load(self) -> ctypes.CDLL:
+        if self.cdll is None:
+            self.cdll = self.bind(load(self.source))
+        return self.cdll
+
+    def launch(self, fn: str, *args: Any) -> None:
+        """``fn(*args)``, which returns 0 or an error code; raise
+        ``RuntimeError`` with ``fn``'s name and the error on a nonzero one."""
+        lib = self.cdll or self.load()
+        err = getattr(lib, fn)(*args)
+        if err != 0:
+            what = (f"CUresult {err - 1000} encoding a tensor map"
+                    if self.row.tma and err >= 1000 else f"CUDA error {err}")
+            text = getattr(lib, f"{self.row.prefix}_error_string")(err).decode()
+            raise RuntimeError(f"{fn} failed: {what} ({text})")
 
 
 def load_all(names=SOURCES) -> Dict[str, ctypes.CDLL]:

@@ -30,12 +30,12 @@ does), masked scores at NEG = -1e9.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-import threading
 from typing import Optional
 
 import torch
+
+from . import _build
 
 __all__ = ["flash_attention", "fa_plain", "FlashAttentionFn", "fa_backward",
            "fa_backward_plain", "fa_forward_with_stats", "fa_stats_plain",
@@ -56,9 +56,20 @@ KV_TILE = {torch.float32: 64, torch.bfloat16: 128}
 _Q_GROUP = 64
 _PLAIN_BQ = 512      # q rows per step of the plain backward
 
-LAUNCHES = 0         # forward kernel launches since the last reset
-BWD_LAUNCHES = 0     # backward launches (three kernels each) since then
-_LAUNCH_LOCK = threading.Lock()
+# Launches since the last reset: forward, and backward (three kernels each).
+_COUNTER = _build.COUNTERS["fa"]
+launch_count = _COUNTER.forward
+bwd_launch_count = _COUNTER.backward
+reset_launch_count = _COUNTER.reset          # both counts to 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
+#: the C interfaces of csrc/flash_attention.cu and flash_attention_bwd.cu:
+#: function -> (restype, argtypes)
+_LIB = _build.Library("flash_attention", {
+    "fa_launch": (_I, [_P] * 5 + [_I] * 7 + [_LL, _F, _I, _I, _I, _P])})
+_BWD_LIB = _build.Library("flash_attention_bwd", {
+    "fa_bwd_launch": (_I, [_P] * 10 + [_I] * 7 + [_LL, _F, _I, _I, _I, _I, _P])})
 
 
 def kv_tile(dtype: torch.dtype, D: int) -> int:
@@ -70,32 +81,6 @@ def kv_tile(dtype: torch.dtype, D: int) -> int:
 
 def _scale(D: int, scale: Optional[float]) -> float:
     return D ** -0.5 if scale is None else float(scale)
-
-
-def launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return LAUNCHES
-
-
-def bwd_launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return BWD_LAUNCHES
-
-
-def reset_launch_count() -> None:
-    """Set both counts, forward and backward, to 0."""
-    global LAUNCHES, BWD_LAUNCHES
-    with _LAUNCH_LOCK:
-        LAUNCHES = BWD_LAUNCHES = 0
-
-
-def _count_launch(backward: bool = False) -> None:
-    global LAUNCHES, BWD_LAUNCHES
-    with _LAUNCH_LOCK:
-        if backward:
-            BWD_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
 
 
 def fa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -297,32 +282,6 @@ def tma_problem(name: str, shape, strides, dtype: torch.dtype,
     return None
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-    lib = load("flash_attention")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fa_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                              ctypes.POINTER(ctypes.c_longlong), f, i, i, i, p]
-    lib.fa_launch.restype = i
-    lib.fa_error_string.argtypes = [i]
-    lib.fa_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=1)
-def _bwd_lib() -> ctypes.CDLL:
-    from ._build import load
-    lib = load("flash_attention_bwd")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fa_bwd_launch.argtypes = [p] * 10 + [i] * 7 + [
-        ctypes.POINTER(ctypes.c_longlong), f, i, i, i, i, p]
-    lib.fa_bwd_launch.restype = i
-    lib.fa_bwd_error_string.argtypes = [i]
-    lib.fa_bwd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient.  It
     saves q, k, v, the output and, in bfloat16, each row's softmax
@@ -408,21 +367,17 @@ def fa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         delta = None
     dq, dk, dv = (_like(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
-    lib = _bwd_lib()
     with torch.cuda.device(q.device):
         _bind_context(q.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fa_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), None if delta is None else delta.data_ptr(),
-            _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides, _scale(D, scale),
-            int(causal), 0 if window is None else int(window), int(q_offset),
-            kv_tile(q.dtype, D), stream)
-    if err != 0:
-        raise RuntimeError(f"fa_bwd_launch failed: {_what(err)} "
-                           f"({lib.fa_bwd_error_string(err).decode()})")
-    _count_launch(backward=True)
+        _BWD_LIB.launch(
+            "fa_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(),
+            None if delta is None else delta.data_ptr(), _DTYPES[q.dtype], B,
+            H, Hkv, S, T, D, strides, _scale(D, scale), int(causal),
+            0 if window is None else int(window), int(q_offset),
+            kv_tile(q.dtype, D), torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add("bwd")
     return dq, dk, dv
 
 
@@ -547,11 +502,6 @@ def _strides(*tensors):
             for st, n in zip(t.stride()[:3], t.shape[:3])]
 
 
-def _what(err: int) -> str:
-    return (f"CUDA error {err}" if err < 1000 else
-            f"CUresult {err - 1000} encoding a tensor map")
-
-
 def _fa_launch(q, k, v, causal, window, q_offset, stats=None,
                scale=None) -> torch.Tensor:
     """One forward launch on inputs that ``_check`` passed, on CUDA; with
@@ -573,19 +523,13 @@ def _fa_launch(q, k, v, causal, window, q_offset, stats=None,
 
     out = _like(q)
     strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, out))
-    lib = _lib()
     with torch.cuda.device(q.device):
         _bind_context(q.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(),
-                            None if stats is None else stats.data_ptr(),
-                            _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides,
-                            _scale(D, scale), int(causal),
-                            0 if window is None else int(window),
-                            int(q_offset), stream)
-    if err != 0:
-        raise RuntimeError(f"fa_launch failed: {_what(err)} "
-                           f"({lib.fa_error_string(err).decode()})")
-    _count_launch()
+        _LIB.launch("fa_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), None if stats is None else stats.data_ptr(),
+                    _DTYPES[q.dtype], B, H, Hkv, S, T, D, strides,
+                    _scale(D, scale), int(causal),
+                    0 if window is None else int(window), int(q_offset),
+                    torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add("fwd")
     return out

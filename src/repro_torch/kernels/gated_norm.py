@@ -24,12 +24,12 @@ and normalises over all of d_inner).
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import _build
 
 __all__ = ["gated_rmsnorm", "gated_rmsnorm_plain", "gated_rmsnorm_backward_plain",
            "gated_rmsnorm_forward", "gated_rmsnorm_backward", "GatedRMSNormFn",
@@ -39,35 +39,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMS, _MAX_THREADS = 4, 512       # csrc/gated_norm.cu: W <= 512·4·4
 _BWD_STRIP = 128     # csrc/gated_norm.cu's BWD_STRIP: one row of partials a strip
 
-LAUNCHES = 0         # forward calls on CUDA since the last reset
-BWD_LAUNCHES = 0     # backward calls on CUDA since then (two kernels each)
-_LAUNCH_LOCK = threading.Lock()
-
-
-def launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return LAUNCHES
-
-
-def bwd_launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return BWD_LAUNCHES
-
-
-def reset_launch_count() -> None:
-    """Set both counts, forward and backward, to 0."""
-    global LAUNCHES, BWD_LAUNCHES
-    with _LAUNCH_LOCK:
-        LAUNCHES = BWD_LAUNCHES = 0
-
-
-def _count_launch(backward: bool = False) -> None:
-    global LAUNCHES, BWD_LAUNCHES
-    with _LAUNCH_LOCK:
-        if backward:
-            BWD_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
+# Calls on CUDA since the last reset: forward, and backward (two kernels each).
+_COUNTER = _build.COUNTERS["gated_norm"]
+launch_count = _COUNTER.forward
+bwd_launch_count = _COUNTER.backward
+reset_launch_count = _COUNTER.reset          # both counts to 0
 
 
 def gated_rmsnorm_plain(y, x, z, D, gnorm, groups: int, eps: float) -> torch.Tensor:
@@ -163,25 +139,12 @@ def _check_kernel(y, x, z, D, gnorm, groups) -> None:
                          f"{_MAX_THREADS} threads of {_ITEMS} chunks of 4")
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-    lib = load("gated_norm")
-    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gn_forward.argtypes = [p] * 7 + [i] * 3 + [q] * 4 + [i] * 3 + \
-        [ctypes.c_float, p]
-    lib.gn_forward.restype = i
-    lib.gn_backward.argtypes = [p] * 13 + [i] * 3 + [q] * 4 + [i] * 3 + [p]
-    lib.gn_backward.restype = i
-    lib.gn_error_string.argtypes = [i]
-    lib.gn_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise(name: str, err: int, lib) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err} "
-                           f"({lib.gn_error_string(err).decode()})")
+_P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: csrc/gated_norm.cu's C interface: function -> (restype, argtypes)
+_LIB = _build.Library("gated_norm", {
+    "gn_forward": (_I, [_P] * 7 + [_I] * 3 + [_Q] * 4 + [_I] * 3
+                   + [ctypes.c_float, _P]),
+    "gn_backward": (_I, [_P] * 13 + [_I] * 3 + [_Q] * 4 + [_I] * 3 + [_P])})
 
 
 def _strides(x, z):
@@ -198,15 +161,13 @@ def gated_rmsnorm_forward(y, x, z, D, gnorm, groups: int, eps: float
     b, t, hh, P = y.shape
     out = torch.empty((b, t, hh * P), dtype=z.dtype, device=y.device)
     r = torch.empty((b, t, groups), dtype=torch.float32, device=y.device)
-    lib = _lib()
     with torch.cuda.device(y.device):
-        err = lib.gn_forward(y.data_ptr(), x.data_ptr(), z.data_ptr(), D.data_ptr(),
-                             gnorm.data_ptr(), out.data_ptr(), r.data_ptr(),
-                             _DTYPES[x.dtype], b * t, t, *_strides(x, z),
-                             hh * P // groups, groups, P, float(eps),
-                             torch.cuda.current_stream().cuda_stream)
-    _raise("gn_forward", err, lib)
-    _count_launch()
+        _LIB.launch("gn_forward", y.data_ptr(), x.data_ptr(), z.data_ptr(),
+                    D.data_ptr(), gnorm.data_ptr(), out.data_ptr(), r.data_ptr(),
+                    _DTYPES[x.dtype], b * t, t, *_strides(x, z),
+                    hh * P // groups, groups, P, float(eps),
+                    torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add("fwd")
     return out, r
 
 
@@ -234,17 +195,14 @@ def gated_rmsnorm_backward(do, y, x, z, D, gnorm, r, groups: int):
     dz = torch.empty(z.shape, dtype=z.dtype, device=y.device)
     dD, dgnorm = torch.empty((hh,), **f32), torch.empty((di,), **f32)
     part = torch.empty((-(-b * t // _BWD_STRIP), di + hh), **f32)
-    lib = _lib()
     with torch.cuda.device(y.device):
-        err = lib.gn_backward(do.data_ptr(), y.data_ptr(), x.data_ptr(), z.data_ptr(),
-                              D.data_ptr(), gnorm.data_ptr(), r.data_ptr(),
-                              dy.data_ptr(), dx.data_ptr(), dz.data_ptr(),
-                              part.data_ptr(), dD.data_ptr(), dgnorm.data_ptr(),
-                              _DTYPES[x.dtype], b * t, t, *_strides(x, z),
-                              di // groups, groups, P,
-                              torch.cuda.current_stream().cuda_stream)
-    _raise("gn_backward", err, lib)
-    _count_launch(backward=True)
+        _LIB.launch("gn_backward", do.data_ptr(), y.data_ptr(), x.data_ptr(),
+                    z.data_ptr(), D.data_ptr(), gnorm.data_ptr(), r.data_ptr(),
+                    dy.data_ptr(), dx.data_ptr(), dz.data_ptr(), part.data_ptr(),
+                    dD.data_ptr(), dgnorm.data_ptr(), _DTYPES[x.dtype], b * t, t,
+                    *_strides(x, z), di // groups, groups, P,
+                    torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add("bwd")
     return dy, dx, dz, dD, dgnorm
 
 

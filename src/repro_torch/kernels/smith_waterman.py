@@ -17,11 +17,11 @@ the kernel's arithmetic: F in closed form, an exclusive prefix-max of
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+from . import _build
 
 __all__ = ["sw_batch", "sw_plain", "pack_subjects", "launch_count",
            "launch_counts", "reset_launch_count", "DEFAULT_TILE", "MAX_QP",
@@ -34,36 +34,17 @@ WARP_QP = 1024       # largest Qp of the warp kernel (one warp per subject)
 _MAX_SMEM = 232448   # bytes of shared memory a block may opt in to (H100)
 
 STRIP_MIN_B = 133    # fewest subjects a launch gives the strip kernel
-PATHS = ("warp", "strip", "block")
 
-LAUNCHES = 0         # kernel launches since the last reset
-_BY_PATH = dict.fromkeys(PATHS, 0)   # the same launches, by path
-_LAUNCH_LOCK = threading.Lock()   # farm workers launch from several threads
+_COUNTER = _build.COUNTERS["sw"]
+PATHS = _COUNTER.keys                        # "warp", "strip", "block"
+launch_count = _COUNTER.forward              # launches since the last reset
+launch_counts = _COUNTER.counts              # the same launches, by path
+reset_launch_count = _COUNTER.reset
 
-
-def launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return LAUNCHES
-
-
-def launch_counts() -> Dict[str, int]:
-    """Launches since the last reset by path (:func:`_sw_path`)."""
-    with _LAUNCH_LOCK:
-        return dict(_BY_PATH)
-
-
-def reset_launch_count() -> None:
-    global LAUNCHES
-    with _LAUNCH_LOCK:
-        LAUNCHES = 0
-        _BY_PATH.update(dict.fromkeys(PATHS, 0))
-
-
-def _count_launch(path: str) -> None:
-    global LAUNCHES
-    with _LAUNCH_LOCK:
-        LAUNCHES += 1
-        _BY_PATH[path] += 1
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: csrc/smith_waterman.cu's C interface: function -> (restype, argtypes)
+_LIB = _build.Library("smith_waterman", {
+    "sw_launch": (_I, [_P] * 5 + [_I] * 5 + [_F, _F, _P])})
 
 
 def _sw_path(Qp: int, B: int) -> str:
@@ -131,18 +112,6 @@ def pack_subjects(subjects: Sequence[Any], A: int, device: Any
             [torch.as_tensor(s).reshape(-1).to("cpu", torch.int32)
              for s in subjects])
     return out.to(device), lengths.to(device)
-
-
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-    lib = load("smith_waterman")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sw_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, p]
-    lib.sw_launch.restype = i
-    lib.sw_error_string.argtypes = [i]
-    lib.sw_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
@@ -214,17 +183,11 @@ def sw_batch(profile: torch.Tensor, subjects: torch.Tensor,
     # the strip's last row and the max of h_hat + i*ge through it
     carry = (torch.empty((B, 2, Dp), dtype=torch.float32,
                          device=profile.device) if path == "strip" else None)
-    lib = _lib()
     with torch.cuda.device(profile.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sw_launch(profile.data_ptr(), subjects.data_ptr(),
-                            None if lengths is None else lengths.data_ptr(),
-                            out.data_ptr(),
-                            None if carry is None else carry.data_ptr(),
-                            A, Qp, q_len, B, Dp, float(gap_open),
-                            float(gap_extend), stream)
-    if err != 0:
-        raise RuntimeError(f"sw_launch failed: CUDA error {err} "
-                           f"({lib.sw_error_string(err).decode()})")
-    _count_launch(path)
+        _LIB.launch("sw_launch", profile.data_ptr(), subjects.data_ptr(),
+                    None if lengths is None else lengths.data_ptr(),
+                    out.data_ptr(), None if carry is None else carry.data_ptr(),
+                    A, Qp, q_len, B, Dp, float(gap_open), float(gap_extend),
+                    torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add(path)
     return out

@@ -33,11 +33,11 @@ form here, the reference's, does not (tests/test_torch_ssm.py).
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
 from typing import Optional, Tuple
 
 import torch
+
+from . import _build
 
 __all__ = ["ssd_scan", "ssd_plain", "ssd_backward_plain", "ssd_backward",
            "ssd_forward_with_scratch", "SsdScanFn", "segsum", "launch_count",
@@ -49,39 +49,26 @@ MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024      # the kernels' limits
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.float32, torch.bfloat16)
 
-LAUNCHES = 0         # forward calls on CUDA since the last reset (5 kernels each)
-BWD_LAUNCHES = 0     # backward calls on CUDA since then (8 kernels each)
 # The backward's kernels, in launch order (csrc/ssd_scan_bwd.cu).
 BWD_KERNELS = ("ssd_bwd_ds_kernel", "ssd_bwd_ds_sum_kernel", "ssd_bwd_state_kernel",
                "ssd_bwd_pass_kernel", "ssd_bwd_bc_heads_kernel", "ssd_bwd_bc_kernel",
                "ssd_bwd_dx_kernel", "ssd_bwd_cumsum_kernel")
-_LAUNCH_LOCK = threading.Lock()
 
+# Calls on CUDA since the last reset: forward (5 kernels each), backward (8).
+_COUNTER = _build.COUNTERS["ssd"]
+launch_count = _COUNTER.forward
+bwd_launch_count = _COUNTER.backward
+reset_launch_count = _COUNTER.reset          # both counts to 0
 
-def launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return LAUNCHES
-
-
-def bwd_launch_count() -> int:
-    with _LAUNCH_LOCK:
-        return BWD_LAUNCHES
-
-
-def reset_launch_count() -> None:
-    """Set both counts, forward and backward, to 0."""
-    global LAUNCHES, BWD_LAUNCHES
-    with _LAUNCH_LOCK:
-        LAUNCHES = BWD_LAUNCHES = 0
-
-
-def _count_launch(backward: bool = False) -> None:
-    global LAUNCHES, BWD_LAUNCHES
-    with _LAUNCH_LOCK:
-        if backward:
-            BWD_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C interfaces of csrc/ssd_scan.cu and ssd_scan_bwd.cu: function ->
+#: (restype, argtypes); tools/ssd_bwd_variants.py binds variants of the
+#: backward's with _BWD_LIB.bind
+_LIB = _build.Library("ssd_scan", {"ssd_launch": (_I, [_P] * 11 + [_I] * 8 + [_P])})
+_BWD_LIB = _build.Library("ssd_scan_bwd", {
+    "ssd_bwd_launch": (_I, [_P] * 17 + [_I] * 8 + [_P]),
+    "ssd_bwd_workspace_floats": (ctypes.c_longlong, [_I] * 6),
+    "ssd_bwd_kernel_configs": (_I, [_I] * 7 + [_P])})
 
 
 def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -285,39 +272,6 @@ def _check_kernel(x, dt, A, B, C, h0, l) -> None:
         raise ValueError("x, dt, A, B, C and h0 must be contiguous")
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-    lib = load("ssd_scan")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [p] * 11 + [i] * 8 + [p]
-    lib.ssd_launch.restype = i
-    lib.ssd_error_string.argtypes = [i]
-    lib.ssd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from ``ssd_scan_bwd.cu``
-    (also used for variants of that source built elsewhere)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_bwd_launch.argtypes = [p] * 17 + [i] * 8 + [p]
-    lib.ssd_bwd_launch.restype = i
-    lib.ssd_bwd_workspace_floats.argtypes = [i] * 6
-    lib.ssd_bwd_workspace_floats.restype = ctypes.c_longlong
-    lib.ssd_bwd_kernel_configs.argtypes = [i] * 7 + [p]
-    lib.ssd_bwd_kernel_configs.restype = i
-    lib.ssd_bwd_error_string.argtypes = [i]
-    lib.ssd_bwd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=1)
-def _bwd_lib() -> ctypes.CDLL:
-    from ._build import load
-    return _bind_bwd(load("ssd_scan_bwd"))
-
-
 def _ssd_launch(x, dt, A, B, C, h0, l, compute_dtype):
     """One forward launch (five kernels) on inputs that ``_check_kernel``
     passed.  Returns (y, h, scratch): the scratch (cs (b,H,nc,l) f64,
@@ -339,20 +293,14 @@ def _ssd_launch(x, dt, A, B, C, h0, l, compute_dtype):
         return y, hout, (cs, cbt, st)
     y = torch.empty((b, T, H, P), **f32)
     hout = torch.empty((b, H, P, N), **f32)
-    lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                             B.data_ptr(), C.data_ptr(),
-                             None if h0 is None else h0.data_ptr(),
-                             y.data_ptr(), hout.data_ptr(), cs.data_ptr(),
-                             cbt.data_ptr(), st.data_ptr(), _DTYPES[x.dtype],
-                             int(compute_dtype == torch.bfloat16), b, T, H, P,
-                             N, l, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_launch failed: CUDA error {err} "
-                           f"({lib.ssd_error_string(err).decode()})")
-    _count_launch()
+        _LIB.launch("ssd_launch", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                    B.data_ptr(), C.data_ptr(),
+                    None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                    hout.data_ptr(), cs.data_ptr(), cbt.data_ptr(), st.data_ptr(),
+                    _DTYPES[x.dtype], int(compute_dtype == torch.bfloat16), b,
+                    T, H, P, N, l, torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add("fwd")
     return y, hout, (cs, cbt, st)
 
 
@@ -393,8 +341,8 @@ def backward_kernel_configs(b: int, T: int, H: int, P: int, N: int,
     launch order.  Builds the CUDA library (needs nvcc)."""
     l = min(chunk, T)
     out = (ctypes.c_longlong * (3 * len(BWD_KERNELS)))()
-    n = _bwd_lib().ssd_bwd_kernel_configs(b, T, H, P, N, l, _DTYPES[dtype],
-                                         out)
+    n = _BWD_LIB.load().ssd_bwd_kernel_configs(b, T, H, P, N, l,
+                                               _DTYPES[dtype], out)
     if n != len(BWD_KERNELS):
         raise ValueError(f"no SSD backward launch for {(b, T, H, P, N, l)}")
     return [(name, out[3 * k], out[3 * k + 1], out[3 * k + 2])
@@ -452,22 +400,19 @@ def ssd_backward(x, dt, A, B, C, chunk: int, dy, scratch, *,
     ddt = torch.empty((b, T, H), **f32)
     dA = torch.empty((H,), **f32)
     dh0 = None if h0 is None else torch.empty((b, H, P, N), **f32)
-    lib = _bwd_lib()
-    work = torch.empty(lib.ssd_bwd_workspace_floats(b, T, H, P, N, l), **f32)
+    work = torch.empty(_BWD_LIB.load().ssd_bwd_workspace_floats(b, T, H, P, N, l),
+                       **f32)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), cs.data_ptr(), cbt.data_ptr(), st.data_ptr(),
-            dy.data_ptr(), None if dh_final is None else dh_final.data_ptr(),
-            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), work.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+        _BWD_LIB.launch(
+            "ssd_bwd_launch", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), cs.data_ptr(), cbt.data_ptr(),
+            st.data_ptr(), dy.data_ptr(),
+            None if dh_final is None else dh_final.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            work.data_ptr(), None if dh0 is None else dh0.data_ptr(),
             _DTYPES[x.dtype], int(compute_dtype == torch.bfloat16), b, T, H, P,
-            N, l, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_bwd_launch failed: CUDA error {err} "
-                           f"({lib.ssd_bwd_error_string(err).decode()})")
-    _count_launch(backward=True)
+            N, l, torch.cuda.current_stream().cuda_stream)
+    _COUNTER.add("bwd")
     return dx, ddt, dA, dB, dC, dh0
 
 

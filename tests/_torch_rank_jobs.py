@@ -15,9 +15,18 @@ import torch
 from _procs_nodes import f, fb_pred, fb_step
 from repro_torch.core import dchannel, dfarm
 from repro_torch.core.dpipeline import pipeline_apply
+from repro_torch.kernels import _build
 
 # the module, not the function the package exports under the same name
 ra = importlib.import_module("repro_torch.parallel.ring_attention")
+
+
+# -- launch counters -----------------------------------------------------------
+def count_launches(ctx, counter, keys):
+    """Tally ``keys`` on this rank's launch counter ``counter``, as the
+    kernels' wrappers do at a launch."""
+    for key in keys:
+        _build.COUNTERS[counter].add(key)
 
 
 # -- dchannel ----------------------------------------------------------------

@@ -4,7 +4,7 @@ above, each on its side of the subject count between them) held against
 their plain PyTorch version on the card, exactly, and the farm search
 launching them once per task or once per chunk of the database; the flash-attention kernels (bf16: wgmma with
 TMA loads, on its edge cases; f32: the SIMT kernel) and the SSD kernels
-(five passes per call) and their backward (four kernels per call) against
+(five passes per call) and their backward (eight kernels per call) against
 their plain versions, on their edge cases; training steps of every family
 through the kernels, forward and backward, against the CPU;
 the Zamba2 smoke prefill launching both; the MoE grouped dispatch against

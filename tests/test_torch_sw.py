@@ -6,8 +6,6 @@ interpret mode, as the reference's own tests run it) and through
 plain PyTorch version.  Tolerance: exact ``==`` — the scores are
 integer-valued f32.  The card-only cases are in ``test_torch_gpu.py``.
 """
-import sys
-import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -240,30 +238,6 @@ def test_encode_seq_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.encode_seq("HEAGAWGHEE")
     assert ops.encode_seq("HEAGAWGHEE", device=CPU).device.type == "cpu"
-
-
-def test_launch_count_loses_no_update_across_threads():
-    """Farm workers count launches from several threads at once, the total
-    and the tally by path alike."""
-    switch = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        sw.reset_launch_count()
-        threads = [threading.Thread(target=lambda p=p: [sw._count_launch(p)
-                                                        for _ in range(2000)])
-                   for p in sw.PATHS * 6][:16]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-        assert not any(t.is_alive() for t in threads)
-        assert sw.launch_count() == 16 * 2000
-        assert sw.launch_counts() == {"warp": 6 * 2000, "strip": 5 * 2000,
-                                      "block": 5 * 2000}
-    finally:
-        sys.setswitchinterval(switch)
-        sw.reset_launch_count()
-    assert sw.launch_counts() == dict.fromkeys(sw.PATHS, 0)
 
 
 @pytest.mark.parametrize("Qp,B,path", [

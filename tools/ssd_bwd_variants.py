@@ -5,9 +5,9 @@ Each variant is ``csrc/ssd_scan_bwd.cu`` and ``csrc/ssd_mma.cuh`` with a
 few text substitutions (the table VARIANTS below; a CPU test checks that
 each still matches the sources), built by the port's own nvcc call
 (``_build.compile_source``) into a temporary directory, all variants at
-once, and bound as the port binds it (``ssd_scan._bind_bwd``).  The script
-then runs every variant once at Zamba2-2.7B's shape (b=2, T=4096, H=80,
-P=64, N=64, chunk 256, x bf16, f32 products) against
+once, and bound with the port's signatures (``ssd_scan._BWD_LIB.bind``).
+The script then runs every variant once at Zamba2-2.7B's shape (b=2,
+T=4096, H=80, P=64, N=64, chunk 256, x bf16, f32 products) against
 ``ssd_backward_plain``, times them in turns (first to last, last to first,
 first to last; CUDA events over 20 calls each) and splits each by kernel
 with ``torch.profiler``.  It prints, per variant: registers and spills
@@ -130,7 +130,7 @@ def build(name, root, libs):
     print(f"{name}: registers/spill bytes (bf16 x, f32 products) "
           + ", ".join(f"{k} {rg}/{sp}" for k, rg, sp in main)
           + "".join(f"\n  {c}" for c in census), flush=True)
-    libs[name] = ssd._bind_bwd(ctypes.CDLL(str(out)))
+    libs[name] = ssd._BWD_LIB.bind(ctypes.CDLL(str(out)))
 
 
 def cuda_ms(fn, iters=20):
@@ -171,7 +171,7 @@ def main(names):
         dy = torch.randn((b, T, H, P), generator=g, device=dev)
         _, _, scratch = ssd.ssd_forward_with_scratch(x, dt, A, Bm, Cm, chunk=l)
         want = ssd.ssd_backward_plain(x, dt, A, Bm, Cm, l, dy)
-        saved = ssd._bwd_lib
+        saved = ssd._BWD_LIB.cdll
 
         def call():
             return ssd.ssd_backward(x, dt, A, Bm, Cm, l, dy, scratch)
@@ -179,7 +179,7 @@ def main(names):
         live = [n for n in names if n in libs]
         try:
             for n in live:
-                ssd._bwd_lib = lambda n=n: libs[n]
+                ssd._BWD_LIB.cdll = libs[n]
                 got = call()
                 torch.cuda.synchronize()
                 errs = []
@@ -193,11 +193,11 @@ def main(names):
             times = {n: [] for n in live}
             for rep in range(3):
                 for n in (live if rep % 2 == 0 else live[::-1]):
-                    ssd._bwd_lib = lambda n=n: libs[n]
+                    ssd._BWD_LIB.cdll = libs[n]
                     times[n].append(cuda_ms(call))
             from torch.profiler import ProfilerActivity, profile
             for n in live:
-                ssd._bwd_lib = lambda n=n: libs[n]
+                ssd._BWD_LIB.cdll = libs[n]
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(10):
                         call()
@@ -212,7 +212,7 @@ def main(names):
                       + ", ".join(f"{k.removeprefix('ssd_bwd_')} {v:.4f}" for k, v in split.items()),
                       flush=True)
         finally:
-            ssd._bwd_lib = saved
+            ssd._BWD_LIB.cdll = saved
     return 0
 
 
